@@ -1,0 +1,249 @@
+"""Key generation: secret/public/relinearization/Galois keys (PyTorch).
+
+Port of dacapo_tpu/crypto/keys.py. Sampling happens host-side with numpy's
+default_rng in the reference's exact draw order, so a context with the same
+seed gives bit-identical keys; the NTTs run on the context's device. Keysets
+persist as the reference's `.npy` directory, readable by either package.
+"""
+
+import os
+from collections import OrderedDict
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .modmath import add_mod, neg_mod, mul_mod
+from .params import to_dev, to_host
+
+
+class GaloisStore:
+    """Galois-key store: dict-like, optionally host-backed with a budgeted
+    device LRU cache.
+
+    A program can need more rotation-key bytes than the card can spare, so
+    keys may live in host RAM with at most `budget` bytes on the device at
+    once, evicted LRU. With `budget=None` entries stay on the device and it
+    behaves like a plain dict.
+    """
+
+    def __init__(self, device, budget=None):
+        self.device = torch.device(device)
+        self.budget = budget
+        self._host = {}              # steps -> np.ndarray uint32 (authoritative)
+        self._dev = OrderedDict()    # steps -> int32 tensor (LRU)
+        self._dev_bytes = 0
+
+    def set_budget(self, budget):
+        """Switch to host-backed mode (or tighten the budget): device copies
+        over budget are dropped, host copies become authoritative."""
+        self.budget = budget
+        if budget is None:
+            return
+        for st, arr in list(self._dev.items()):
+            if st not in self._host:
+                self._host[st] = to_host(arr)
+        while self._dev_bytes > budget and self._dev:
+            _, old = self._dev.popitem(last=False)
+            self._dev_bytes -= old.nbytes
+
+    def __setitem__(self, st, arr):
+        if self.budget is None:
+            dev = arr if isinstance(arr, torch.Tensor) else to_dev(arr, self.device)
+            dev = dev.to(self.device)
+            if st in self._dev:
+                self._dev_bytes -= self._dev[st].nbytes
+            self._dev[st] = dev
+            self._dev_bytes += dev.nbytes
+            self._host.pop(st, None)
+        else:
+            self.put_host(st, arr)
+
+    def put_host(self, st, arr):
+        """Insert a key host-side only: device residency is decided at first
+        use, under whatever budget applies then."""
+        self._host[st] = to_host(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+        old = self._dev.pop(st, None)
+        if old is not None:
+            self._dev_bytes -= old.nbytes
+
+    def __getitem__(self, st):
+        dev = self._dev.get(st)
+        if dev is not None:
+            self._dev.move_to_end(st)
+            return dev
+        dev = to_dev(self._host[st], self.device)
+        self._dev[st] = dev
+        self._dev_bytes += dev.nbytes
+        if self.budget is not None:
+            while self._dev_bytes > self.budget and len(self._dev) > 1:
+                _, old = self._dev.popitem(last=False)
+                self._dev_bytes -= old.nbytes
+        return dev
+
+    def __contains__(self, st):
+        return st in self._dev or st in self._host
+
+    def __len__(self):
+        return len(self.keys())
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def keys(self):
+        return self._host.keys() | self._dev.keys()
+
+    def peek_host(self, st):
+        """Host uint32 copy without promoting the key to the device."""
+        return self._host[st] if st in self._host else to_host(self._dev[st])
+
+
+@dataclass
+class KeySet:
+    s_ntt: object                    # int32 [num_all, N] (secret)
+    pk: object                       # int32 [2, num_q, N] (b, a)
+    rlk: object                      # int32 [dnum, 2, num_all, N]
+    galois: GaloisStore = None       # steps -> int32 [dnum, 2, num_all, N]
+
+
+def _residues(coeffs: np.ndarray, primes) -> np.ndarray:
+    """Signed int64 coeffs -> uint32 RNS planes [len(primes), N]."""
+    out = np.empty((len(primes), coeffs.shape[-1]), dtype=np.uint32)
+    for i, q in enumerate(primes):
+        out[i] = np.mod(coeffs, q).astype(np.uint32)
+    return out
+
+
+class KeyGenerator:
+    def __init__(self, ctx, evaluator, seed=None):
+        self.ctx = ctx
+        self.ev = evaluator
+        self.rng = np.random.default_rng(ctx.config.seed if seed is None else seed)
+
+    # ------------------------------------------------------------- samples
+    # Draw calls and their order are the reference's: keys and encryptions
+    # are bit-identical for the same seed.
+    def _ternary(self, h: int = 0):
+        """Uniform dense ternary, or (h>0) sparse with Hamming weight h."""
+        if h <= 0:
+            return self.rng.integers(-1, 2, size=self.ctx.n).astype(np.int64)
+        out = np.zeros(self.ctx.n, dtype=np.int64)
+        idx = self.rng.choice(self.ctx.n, size=h, replace=False)
+        out[idx] = self.rng.choice(np.array([-1, 1], dtype=np.int64), size=h)
+        return out
+
+    def _gauss(self):
+        return np.round(self.rng.normal(0.0, 3.2, size=self.ctx.n)).astype(np.int64)
+
+    def _uniform_planes(self, rows):
+        qs = np.array([self.ctx.primes[r] for r in rows], dtype=np.uint64)
+        u = self.rng.integers(0, qs[:, None], size=(len(rows), self.ctx.n))
+        return to_dev(u.astype(np.uint32), self.ctx.device)
+
+    def _ntt_planes(self, coeffs: np.ndarray, rows):
+        planes = _residues(coeffs, [self.ctx.primes[r] for r in rows])
+        return self.ev.ntt(to_dev(planes, self.ctx.device), rows)
+
+    # ------------------------------------------------------------- keygen
+    def generate(self, rot_steps=()) -> KeySet:
+        cfg = self.ctx.config
+        all_rows = list(range(cfg.num_all))
+        q_rows = list(range(cfg.num_q))
+
+        s_ntt = self._ntt_planes(self._ternary(cfg.secret_h), all_rows)
+
+        # public key over Q: b = -a s + e
+        a = self._uniform_planes(q_rows)
+        e = self._ntt_planes(self._gauss(), q_rows)
+        q = self.ev._q(q_rows)
+        b = add_mod(neg_mod(mul_mod(a, s_ntt[: cfg.num_q], q), q), e, q)
+        pk = torch.stack([b, a])
+
+        # relinearization key: target s^2
+        rlk = self._ksk(s_ntt, mul_mod(s_ntt, s_ntt, self.ev._q(all_rows)))
+
+        keys = KeySet(s_ntt=s_ntt, pk=pk, rlk=rlk,
+                      galois=GaloisStore(self.ctx.device))
+        return self.extend_galois(keys, rot_steps)
+
+    def extend_galois(self, keyset: KeySet, rot_steps):
+        """Generate any missing galois keys for the given rotation steps."""
+        half = self.ctx.n // 2
+        for st in rot_steps:
+            st = st % half
+            if st not in keyset.galois and st != 0:
+                s_rot = self.ev.automorphism(keyset.s_ntt, st)
+                keyset.galois[st] = self._ksk(keyset.s_ntt, s_rot)
+        return keyset
+
+    def _ksk(self, s_ntt, target_ntt):
+        """Key-switch key from key `target` to key `s`:
+        ksk_j = (-a_j s + e_j + [P*Q̂_j^{full}]*target, a_j) over the full QP basis."""
+        ctx = self.ctx
+        cfg = ctx.config
+        all_rows = list(range(cfg.num_all))
+        q = self.ev._q(all_rows)
+        digits = []
+        for j in range(cfg.dnum):
+            rows_j = list(range(j * cfg.alpha, min((j + 1) * cfg.alpha, cfg.num_q)))
+            qj = 1
+            for r in rows_j:
+                qj *= ctx.q_primes[r]
+            factor_int = ctx.p_prod * (ctx.q_full // qj)
+            fac = np.array([factor_int % p for p in ctx.primes], dtype=np.uint32)
+            a_j = self._uniform_planes(all_rows)
+            e_j = self._ntt_planes(self._gauss(), all_rows)
+            msg = mul_mod(to_dev(fac[:, None], ctx.device), target_ntt, q)
+            b_j = add_mod(add_mod(neg_mod(mul_mod(a_j, s_ntt, q), q), e_j, q), msg, q)
+            digits.append(torch.stack([b_j, a_j]))
+        return torch.stack(digits)
+
+
+def save_keyset(keyset: KeySet, dirpath: str, skip_existing=False):
+    """Persist a keyset directory in the reference's format (uint32 .npy
+    files; galois/<steps>.npy). skip_existing: only write absent files."""
+    os.makedirs(os.path.join(dirpath, "galois"), exist_ok=True)
+
+    def _put(name, arr):
+        p = os.path.join(dirpath, name)
+        if arr is None or (skip_existing and os.path.exists(p)):
+            return
+        np.save(p, arr if isinstance(arr, np.ndarray) else to_host(arr))
+
+    _put("s_ntt.npy", keyset.s_ntt)
+    _put("pk.npy", keyset.pk)
+    _put("rlk.npy", keyset.rlk)
+    for st in keyset.galois.keys():
+        p = os.path.join("galois", f"{st}.npy")
+        if not (skip_existing and os.path.exists(os.path.join(dirpath, p))):
+            _put(p, keyset.galois.peek_host(st))
+
+
+def keyset_from_numpy(d, device) -> KeySet:
+    """KeySet from host arrays: d holds uint32 `s_ntt`, `pk`, `rlk` and
+    `galois` ({steps: array}), e.g. a reference KeySet via np.asarray."""
+    dev = torch.device(device)
+    ks = KeySet(s_ntt=to_dev(d["s_ntt"], dev) if d.get("s_ntt") is not None else None,
+                pk=to_dev(d["pk"], dev),
+                rlk=to_dev(d["rlk"], dev) if d.get("rlk") is not None else None,
+                galois=GaloisStore(dev))
+    for st, arr in d.get("galois", {}).items():
+        ks.galois.put_host(int(st), np.asarray(arr))
+    return ks
+
+
+def load_keyset(dirpath: str, device) -> KeySet:
+    """Read a keyset directory written by either package's save_keyset."""
+
+    def _load(name):
+        p = os.path.join(dirpath, f"{name}.npy")
+        return np.load(p) if os.path.exists(p) else None
+
+    gdir = os.path.join(dirpath, "galois")
+    galois = {}
+    if os.path.isdir(gdir):
+        for f in os.listdir(gdir):
+            galois[int(f[:-4])] = np.load(os.path.join(gdir, f))
+    return keyset_from_numpy(
+        dict(s_ntt=_load("s_ntt"), pk=_load("pk"), rlk=_load("rlk"),
+             galois=galois), device)

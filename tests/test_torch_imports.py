@@ -1,0 +1,51 @@
+"""The port stands alone: importing every module of dacapo_tpu_torch and
+chip_smoke.py loads no JAX and nothing of dacapo_tpu, and its entry points
+refuse to run on a card that is not there."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import dacapo_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dacapo_tpu_torch.__path__, "dacapo_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "dacapo_tpu."))
+             or m == "dacapo_tpu")
+print(len(names), bad)
+"""
+
+
+def _run(code):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.path.abspath(ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_no_jax_and_no_reference_package():
+    proc = _run(_PROBE)
+    assert proc.returncode == 0, proc.stderr
+    count, bad = proc.stdout.strip().split(" ", 1)
+    assert int(count) >= 15
+    assert bad == "[]", bad
+
+
+def test_hevm_default_device_raises_without_cuda():
+    proc = _run("import torch\n"
+                "assert not torch.cuda.is_available()\n"
+                "from dacapo_tpu_torch import HEVM\n"
+                "try:\n    HEVM('test_n10', keyset_dir='/nonexistent')\n"
+                "except RuntimeError as e:\n    print('raised', e)\n")
+    if "AssertionError" in proc.stderr:
+        pytest.skip("a card is present: the default device is valid here")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("raised") and "device='cpu'" in proc.stdout
