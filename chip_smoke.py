@@ -5,9 +5,11 @@
 
 1. prints the environment (card, power limit, torch, CUDA, nvcc);
 2. builds the hand-written CUDA NTT kernel (csrc/ntt.cu) from the checkout;
-3. holds both kernel modes against the plain PyTorch NTT on the card, at the
-   shapes of the MLP path at tpu_n15 (N=2^15) and at N=2^11, and times them
-   (device time by CUDA events, L2 flushed before each run, median of 25);
+3. holds both kernel modes and the round trip against the plain PyTorch
+   NTT on the card, bit for bit, at the shapes of the MLP path at tpu_n15
+   (N=2^15), at N=2^11, at test_n8 (N=2^8) and at the rescale / ModUp
+   shapes of tpu_n16 (N=2^16), and times them (device time by CUDA events,
+   L2 flushed before each run, median of 25);
 4. serves the committed MLP artifact (pars/40, tpu_n15) through
    HEVM.load / setInput / run / getOutput for three requests on a freshly
    generated keyset, checks each RMS against the numpy model and the first
@@ -15,7 +17,11 @@
    path ran the kernel and never the plain NTT;
 5. profiles one more request (device time by kernel, idle share) and times
    the parts of load;
-6. prints the kernel table as one JSON line, then the card's name and power
+6. runs Scheme("tpu_n16", seed=5) on the card: keygen, encrypt two vectors,
+   mul (relinearise), rescale, decrypt; checks the RMS against a*b, the
+   output ciphertext bit-equal to the same calls with device="cpu", and that
+   both kernel modes ran and the plain NTT never did;
+7. prints the kernel table as one JSON line, then the card's name and power
    limit, then {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -35,8 +41,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "mlp_pars40_tpu_n15")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit rate outside the tensor cores
+# H100 SXM 32-bit integer instructions a second: 64 INT32 lanes per SM (half
+# the 128 FP32 lanes; Hopper architecture white paper) x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 RMS_BAR = 1e-6
+RMS_BAR_N16 = 1e-3
 N_TIMED = 25
 
 
@@ -79,13 +88,28 @@ def time_cuda(fn, torch, flush):
 def ntt_bound_ms(b, n, n_primes, inverse):
     """Least time for one call: bytes (plane in + out, value and Shoup
     twiddle rows of each distinct prime) over the memory rate, or the 32-bit
-    integer operations (7 per butterfly, 4 more per element for N^-1) over
-    the integer rate, whichever is larger."""
+    integer operations over the INT32 rate, whichever is larger. Operations
+    are counted as the algorithm needs them, not as the compiled code has
+    them: 7 per butterfly (1 mul.hi, 2 mul.lo, ~4 add/compare) and 4 more
+    per element for the inverse's N^-1."""
     logn = n.bit_length() - 1
     nbytes = 2 * b * n * 4 + n_primes * 2 * n * 4
     ops = b * logn * (n // 2) * 7 + (b * n * 4 if inverse else 0)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def make_planes(torch, tab, b, n, gen):
+    """b planes of random residues; rows: every prime, repeated and out of
+    order (a permutation first), as int32 [b] on the card."""
+    p = tab["q"].shape[0]
+    perm = torch.randperm(p, generator=gen, device="cuda")
+    extra = torch.randint(0, p, (max(0, b - p),), generator=gen, device="cuda")
+    rows = torch.cat([perm, extra])[:b].to(torch.int32).contiguous()
+    q = tab["q"][rows.long()].to(torch.int64)[:, None]
+    x = (torch.randint(0, 1 << 62, (b, n), generator=gen, device="cuda",
+                       dtype=torch.int64) % q).to(torch.int32)
+    return x, rows, q
 
 
 def kernel_checks(torch, params, ntt_mod, nk):
@@ -94,18 +118,12 @@ def kernel_checks(torch, params, ntt_mod, nk):
     max_err = {"fwd": 0, "inv": 0}
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    for profile, batches in (("tpu_n15", (2, 14, 56, 112, 2240)), ("test_n11", (2, 37))):
+    for profile, batches in (("tpu_n15", (2, 14, 56, 112, 2240)), ("test_n11", (2, 37)),
+                             ("test_n8", (2, 9)), ("tpu_n16", (2, 42, 126))):
         ctx = params.CKKSContext(params.PROFILES[profile], "cuda")
         tab = ctx.dev
-        n, p = ctx.n, len(ctx.primes)
         for b in batches:
-            # every prime, repeated and out of order (a permutation first)
-            perm = torch.randperm(p, generator=gen, device="cuda")
-            extra = torch.randint(0, p, (max(0, b - p),), generator=gen, device="cuda")
-            rows = torch.cat([perm, extra])[:b].to(torch.int32).contiguous()
-            q = tab["q"][rows.long()].to(torch.int64)[:, None]
-            x = (torch.randint(0, 1 << 62, (b, n), generator=gen, device="cuda",
-                               dtype=torch.int64) % q).to(torch.int32)
+            x, rows, q = make_planes(torch, tab, b, ctx.n, gen)
             idx = rows.long()
             plain = {
                 "fwd": lambda: ntt_mod.ntt_fwd(x, tab["tw"][idx], q),
@@ -128,8 +146,8 @@ def kernel_checks(torch, params, ntt_mod, nk):
             n_primes = len(set(rows.tolist()))
             for mode in ("fwd", "inv"):
                 k_ms = time_cuda(kern[mode], torch, flush)
-                p_ms = time_cuda(plain[mode], torch, flush) if b <= 112 else None
-                bound, by = ntt_bound_ms(b, n, n_primes, mode == "inv")
+                p_ms = time_cuda(plain[mode], torch, flush) if b <= 126 else None
+                bound, by = ntt_bound_ms(b, ctx.n, n_primes, mode == "inv")
                 results[mode][(profile, b)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                                    bound_by=by)
                 log(f"[ntt] {mode} {profile} B={b:<5} equal=True kernel {k_ms:.4f} ms "
@@ -168,7 +186,7 @@ def where_time_goes(torch, vm, mlp, keydir):
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    ntt = sum(r[0] for r in rows if "ntt_kernel" in r[2]) / 1e6
+    ntt = sum(r[0] for r in rows if "ntt_pass" in r[2]) / 1e6
     out["profiled_request"] = dict(
         wall_s=wall, device_busy_s=busy, ntt_kernel_s=ntt,
         idle_share=(1 - busy / wall) if busy else None,
@@ -260,6 +278,56 @@ def serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params):
     return phases, launches, rms_all
 
 
+def scheme_n16(np, torch, Scheme, nk, ntt_mod, params):
+    """The N=2^16 kernel on a real entry point: Scheme("tpu_n16", seed=5),
+    keygen, encrypt two uniform vectors, mul (relinearise), rescale,
+    decrypt; first with device="cpu", then on the card with the counts set
+    to 0 just before and read just after. Keys and noise come from host
+    numpy, so both runs draw the same and their ciphertexts must be equal."""
+    rng = np.random.default_rng(5)
+    n_slots = params.PROFILES["tpu_n16"].n_slots
+    a, b = rng.uniform(-1, 1, n_slots), rng.uniform(-1, 1, n_slots)
+
+    def run(device):
+        t = {}
+        t0 = time.perf_counter()
+        s = Scheme("tpu_n16", seed=5, device=device)
+        s.generate_keys()
+        torch.cuda.synchronize()
+        t["keygen_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ca, cb = s.encrypt(a), s.encrypt(b)
+        c = s.rescale(s.mul(ca, cb))
+        out = s.decrypt(c)
+        torch.cuda.synchronize()
+        t["encrypt_mul_rescale_decrypt_s"] = time.perf_counter() - t0
+        return params.to_host(c.data), out, t
+
+    ct_cpu, _, t_cpu = run("cpu")
+    for k in nk.LAUNCHES:
+        nk.LAUNCHES[k] = 0
+    for k in ntt_mod.CALLS:
+        ntt_mod.CALLS[k] = 0
+    ct_gpu, out, t_gpu = run("cuda")
+    launches, plain_calls = dict(nk.LAUNCHES), dict(ntt_mod.CALLS)
+    rms = float(np.sqrt(np.mean((out - a * b) ** 2)))
+    equal = ct_gpu.shape == ct_cpu.shape and bool((ct_gpu == ct_cpu).all())
+    log(f"[n16] Scheme tpu_n16 card: keygen {t_gpu['keygen_s']:.3f} s, encrypt+mul+"
+        f"rescale+decrypt {t_gpu['encrypt_mul_rescale_decrypt_s']:.3f} s; cpu: keygen "
+        f"{t_cpu['keygen_s']:.3f} s, rest {t_cpu['encrypt_mul_rescale_decrypt_s']:.3f} s")
+    log(f"[n16] rms {rms:.3e} (bar {RMS_BAR_N16}), ciphertext {ct_gpu.shape} equal to "
+        f"the cpu run: {equal}, launches {launches}, plain NTT calls {plain_calls}")
+    if not rms <= RMS_BAR_N16:
+        raise AssertionError(f"tpu_n16 rms {rms} > {RMS_BAR_N16}")
+    if not equal:
+        raise AssertionError("tpu_n16 ciphertext on the card differs from the cpu run")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel mode never ran in the tpu_n16 phase: {launches}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"the plain NTT ran in the tpu_n16 phase: {plain_calls}")
+    return dict(rms=rms, ct_equal=equal, launches=launches, card=t_gpu, cpu=t_cpu)
+
+
 def main():
     import numpy as np
     import torch
@@ -272,6 +340,7 @@ def main():
     sys.path.insert(0, REPO)
     from dacapo_tpu_torch import HEVM
     from dacapo_tpu_torch.crypto import ntt as ntt_mod, params
+    from dacapo_tpu_torch.crypto.scheme import Scheme
     from dacapo_tpu_torch.crypto.cuda import ntt_kernel as nk
     from dacapo_tpu_torch.models import mlp
 
@@ -289,6 +358,7 @@ def main():
 
     results, max_err = kernel_checks(torch, params, ntt_mod, nk)
     phases, launches, rms_all = serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params)
+    n16 = scheme_n16(np, torch, Scheme, nk, ntt_mod, params)
 
     kernels = []
     for mode, name, line in (("fwd", "ntt_fwd_cuda", 94), ("inv", "ntt_inv_cuda", 110)):
@@ -298,13 +368,16 @@ def main():
             replaces=f"dacapo_tpu/crypto/pallas/ntt_kernel.py:{line}",
             launches=launches[name], max_abs_err=max_err[mode], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None, shape="B=112, N=2^15 (ModUp batch at tpu_n15)"))
+            library_ms=None, shape="B=112, N=2^15 (ModUp batch at tpu_n15)",
+            launches_by_path={"mlp_tpu_n15": launches[name],
+                              "scheme_tpu_n16": n16["launches"][name]}))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        ntt={m: {f"{p}/B={b}": v for (p, b), v in r.items()}
                             for m, r in results.items()},
-                       mlp=phases, rms=rms_all, kernels=kernels), f, indent=1)
+                       mlp=phases, rms=rms_all, scheme_tpu_n16=n16, kernels=kernels),
+                  f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

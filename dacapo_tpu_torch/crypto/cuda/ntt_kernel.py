@@ -24,9 +24,10 @@ SOURCE = _PKG / "csrc" / "ntt.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MIN_LOGN, MAX_LOGN = 10, 15
+MIN_LOGN, MAX_LOGN = 8, 16
 
-# launches of each mode (one per kernel launch, nowhere else)
+# launches of each mode: one per call that launched the kernel (its two
+# passes), counted where it launches and nowhere else
 LAUNCHES = {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
 BUILD_INFO = {}          # seconds, nvcc output of the build in this process
 
@@ -71,13 +72,8 @@ def build():
 
 def _check_logn(n: int) -> int:
     logn = n.bit_length() - 1
-    if n != 1 << logn or logn < MIN_LOGN:
+    if n != 1 << logn or not MIN_LOGN <= logn <= MAX_LOGN:
         raise ValueError(f"CUDA NTT takes N = 2^{MIN_LOGN}..2^{MAX_LOGN}, got {n}")
-    if logn > MAX_LOGN:
-        raise ValueError(
-            f"CUDA NTT: an N=2^{logn} plane ({4 << logn >> 10} KB) does not fit "
-            "one block's shared memory (227 KB); N=2^16 needs a two-pass or "
-            "cluster variant of the kernel")
     return logn
 
 
@@ -98,7 +94,8 @@ def ntt_cuda(x, rows, tables, inverse=False):
     rows: int32 [B] CUDA tensor, the prime row of each plane. tables: the
     context's device tables (CKKSContext.dev): `q`, `ninv`, `ninv_shoup`
     [P] and `tw`/`tw_shoup` (forward) or `itw`/`itw_shoup` (inverse) [P, N].
-    Returns a new int32 [B, N] tensor, launched on the current stream."""
+    Returns a new int32 [B, N] tensor, launched on the current stream as
+    the kernel's two passes (one count per call)."""
     if x.dim() != 2:
         raise ValueError(f"ntt_cuda: x must be [B, N], got {tuple(x.shape)}")
     b, n = x.shape

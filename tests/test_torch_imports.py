@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of dacapo_tpu_torch and
-chip_smoke.py loads no JAX and nothing of dacapo_tpu, and its entry points
-refuse to run on a card that is not there."""
+"""The port stands alone: importing every module of dacapo_tpu_torch,
+chip_smoke.py and scripts/torch_ntt_ab.py loads no JAX and nothing of
+dacapo_tpu, and its entry points refuse to run on a card that is not
+there."""
 
 import os
 import subprocess
@@ -11,12 +12,14 @@ import pytest
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import dacapo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dacapo_tpu_torch.__path__, "dacapo_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+spec = importlib.util.spec_from_file_location("torch_ntt_ab", "scripts/torch_ntt_ab.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dacapo_tpu."))
              or m == "dacapo_tpu")
