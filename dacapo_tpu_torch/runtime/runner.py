@@ -11,6 +11,7 @@ import json
 import os
 import shutil
 import struct
+import time
 
 import numpy as np
 import torch
@@ -67,12 +68,29 @@ class HEVM:
             json.dump({"primes": fingerprint}, f)
 
     def load(self, cst_path, hevm_path):
-        """Constants + bytecode -> executor + pre-encoded plaintexts."""
+        """Constants + bytecode -> executor + pre-encoded plaintexts. The
+        seconds of each part are kept in `load_seconds`."""
+        laps = [time.perf_counter()]
+
+        def lap():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            laps.append(time.perf_counter())
+
         self.prog = HEVMProgram.load(hevm_path)
-        self.executor = HEVMExecutor(self.scheme, self.prog, read_cst(cst_path))
+        constants = read_cst(cst_path)
+        lap()
+        # the executor generates the program's missing galois keys
+        self.executor = HEVMExecutor(self.scheme, self.prog, constants)
+        lap()
         self.executor.preprocess()
+        lap()
         # persist newly generated galois keys (existing files are kept)
         keymod.save_keyset(self.scheme.keys, self.keyset_dir, skip_existing=True)
+        lap()
+        self.load_seconds = dict(zip(
+            ("read", "galois_keygen", "preencode", "keyset_write"),
+            np.diff(laps).tolist()))
 
     def setInput(self, i, data):
         """Encode+encrypt argument i at its compiled (level, scale)."""

@@ -3,8 +3,9 @@
 Port of the per-op path of dacapo_tpu/vm/executor.py (the reference's
 `jit=False` path): one Evaluator call per (fused) instruction, the
 counterpart of the reference C++ VM dispatch loop
-(lib/Runtime/SEAL_HEVM.cpp:336-401). Segment capture, batching and
-plaintext streaming are later slices; a bootstrap raises.
+(lib/Runtime/SEAL_HEVM.cpp:336-401). A bootstrap calls the emulated oracle
+(crypto/bootstrap.py). Segment capture, batching and plaintext streaming are
+later slices: every plaintext stays resident on the device.
 
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
@@ -17,6 +18,7 @@ import sys
 import numpy as np
 import torch
 
+from ..crypto.bootstrap import Bootstrapper
 from ..crypto.params import to_dev
 from ..crypto.scheme import Ciphertext
 from .fuse import ssa_expand, build_fuse_plan, OP_ROTMAC, OP_UPRESCALE, cipher_reads
@@ -48,6 +50,10 @@ class HEVMExecutor:
         self.plain_meta = [None] * program.num_ptxt  # (nl, scale)
         self._uk_cache = {}
         self._last_outputs = None
+        self.bootstrapper = Bootstrapper(scheme) if any(
+            op.opcode == OP_BOOTSTRAP for op in program.ops) else None
+        self.n_keys = len({o for o in program.rotation_offsets() if o != 0})
+        self.key_bytes = self.n_keys * scheme.galois_key_bytes()
         self._set_memory_budgets()
         self._prepare_keys()
 
@@ -56,10 +62,8 @@ class HEVMExecutor:
         if dev.type != "cuda":
             return
         _, total = torch.cuda.mem_get_info(dev)
-        offs = {o for o in self.prog.rotation_offsets() if o != 0}
-        key_bytes = len(offs) * self.s.galois_key_bytes()
-        if key_bytes > self.KEY_BUDGET_FRAC * total:
-            print(f"[hevm] galois keys {key_bytes >> 20} MiB exceed budget "
+        if self.key_bytes > self.KEY_BUDGET_FRAC * total:
+            print(f"[hevm] galois keys {self.key_bytes >> 20} MiB exceed budget "
                   f"{int(self.KEY_BUDGET_FRAC * total) >> 20} MiB: "
                   "streaming keys from host (LRU)", file=sys.stderr)
             self.s.set_key_budget(int(self.KEY_BUDGET_FRAC * total))
@@ -79,6 +83,7 @@ class HEVMExecutor:
         st = steer_scales(self.prog, [int(q) for q in ctx.q_primes], self.rr,
                           ctx.config.prime_bits)
         nq = ctx.config.num_q
+        self.plain_bytes = 0
         self._steer_res = {opi: self.ev.scalar_rows(k, nq)
                            for opi, (k, _nl) in st.up_k.items()}
         self._steer_kf = {opi: float(k) for opi, (k, _nl) in st.up_k.items()}
@@ -138,9 +143,15 @@ class HEVMExecutor:
                 out = out.reshape(nrows, bsz, -1).transpose(0, 1)
                 for k, c in enumerate(chunk):
                     planes = out[k].contiguous()
+                    self.plain_bytes += planes.nbytes
                     for dst in cid_regs[c]:
                         self.plains[dst] = planes
                 i += bsz
+        self.n_plains = len(cid_info)
+        print(f"[hevm] {self.n_plains} unique plaintexts of "
+              f"{sum(1 for o in self.prog.ops if o.opcode == OP_ENCODE)} "
+              f"encodes: {self.plain_bytes} bytes resident; {self.n_keys} "
+              f"galois keys: {self.key_bytes} bytes", file=sys.stderr, flush=True)
 
     def _plain(self, idx, nl):
         p = self.plains[idx]
@@ -319,9 +330,11 @@ class HEVMExecutor:
                     ciphers[op.lhs], self._plain(op.rhs, nl), nl)
                 meta[op.dst] = (nl, sa * psc)
             elif oc == OP_BOOTSTRAP:
-                raise NotImplementedError(
-                    "bootstrapc: the oracle bootstrap (crypto/bootstrap.py, "
-                    "crt_lift.py) is the next slice of the port (ResNet-20)")
+                # scale-preserving (the oracle reheats after a cooled lift):
+                # the level becomes (target_level + 1) * rr rows
+                nl, sc = meta[op.lhs]
+                ciphers[op.dst], meta[op.dst] = self.bootstrapper.bootstrap(
+                    ciphers[op.lhs], nl, sc, op.rhs)
             else:
                 raise ValueError(f"bad opcode {oc}")
             release(op, opi)

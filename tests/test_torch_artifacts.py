@@ -1,7 +1,9 @@
-"""The port's committed MLP artifact (dacapo_tpu_torch/artifacts/
-mlp_pars40_tpu_n15) and its provenance: the JAX compiler regenerates it byte
-for byte, the port's readers parse it as the JAX package's do, and (slow)
-the JAX executor reproduces the committed digest of the output ciphertext."""
+"""The port's committed artifacts (dacapo_tpu_torch/artifacts/) and their
+provenance: the JAX compiler regenerates the MLP's byte for byte, the port's
+readers parse the MLP and ResNet programs as the JAX package's do, and
+(slow) the JAX executor reproduces the committed digest of the MLP's output
+ciphertext. The ResNet program takes ~15 minutes to compile:
+scripts/make_resnet_artifact.py regenerates it."""
 
 import hashlib
 import json
@@ -13,10 +15,11 @@ import pytest
 from dacapo_tpu.ir.serialize import read_cst as ref_read_cst
 from dacapo_tpu.vm.hevm import HEVMProgram as RefProgram
 from dacapo_tpu_torch.ir.serialize import read_cst, write_cst
-from dacapo_tpu_torch.vm.hevm import HEVMProgram
+from dacapo_tpu_torch.vm.hevm import HEVMProgram, OP_BOOTSTRAP, OP_ENCODE
 
 ART = os.path.join(os.path.dirname(__file__), "..", "dacapo_tpu_torch",
                    "artifacts", "mlp_pars40_tpu_n15")
+RESNET_ART = os.path.join(os.path.dirname(ART), "resnet_dacapo40_tpu_n15")
 
 
 def _bytes(path):
@@ -50,6 +53,29 @@ def test_port_reader_parses_same_program():
     assert [(o.opcode, o.dst, o.lhs, o.rhs) for o in got.ops] == \
         [(o.opcode, o.dst, o.lhs, o.rhs) for o in want.ops]
     assert got.validate() == -1
+
+
+def test_port_reader_parses_resnet_program(tmp_path):
+    """The committed ResNet-20 dacapo-40 program: the port's reader against
+    the JAX reader, its writer round trip, and the counts of expected.json."""
+    path = os.path.join(RESNET_ART, "ResNet.hevm")
+    got, want = HEVMProgram.load(path), RefProgram._load_py(path)
+    for k in ("arg_scale", "arg_level", "res_scale", "res_level", "res_dst",
+              "init_level", "num_ctxt", "num_ptxt"):
+        assert getattr(got, k) == getattr(want, k), k
+    assert [(o.opcode, o.dst, o.lhs, o.rhs) for o in got.ops] == \
+        [(o.opcode, o.dst, o.lhs, o.rhs) for o in want.ops]
+    assert got.validate() == -1
+    with open(os.path.join(RESNET_ART, "expected.json")) as f:
+        expected = json.load(f)
+    assert hashlib.sha256(_bytes(path)).hexdigest() == expected["hevm_sha256"]
+    assert len(got.ops) == expected["instructions"]
+    assert sum(o.opcode == OP_ENCODE for o in got.ops) == expected["encodes"]
+    assert sum(o.opcode == OP_BOOTSTRAP for o in got.ops) == expected["bootstraps"] == 19
+    assert len({o for o in got.rotation_offsets() if o != 0}) == \
+        expected["rotation_offsets"] == 202
+    got.save(str(tmp_path / "x.hevm"))
+    assert _bytes(str(tmp_path / "x.hevm")) == _bytes(path)
 
 
 def test_port_cst_roundtrip(tmp_path):

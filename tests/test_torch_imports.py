@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of dacapo_tpu_torch,
-chip_smoke.py and scripts/torch_ntt_ab.py loads no JAX and nothing of
-dacapo_tpu, and its entry points refuse to run on a card that is not
-there."""
+chip_smoke.py and scripts/torch_ntt_ab.py loads no JAX, nothing of
+dacapo_tpu and nothing of examples, and its entry points refuse to run on a
+card that is not there."""
 
 import os
 import subprocess
@@ -21,8 +21,8 @@ import chip_smoke
 spec = importlib.util.spec_from_file_location("torch_ntt_ab", "scripts/torch_ntt_ab.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "dacapo_tpu."))
-             or m == "dacapo_tpu")
+             if m in ("jax", "dacapo_tpu", "examples")
+             or m.startswith(("jax.", "jaxlib", "dacapo_tpu.", "examples.")))
 print(len(names), bad)
 """
 
@@ -38,7 +38,7 @@ def test_no_jax_and_no_reference_package():
     proc = _run(_PROBE)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 26
     assert bad == "[]", bad
 
 

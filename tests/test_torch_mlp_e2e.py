@@ -90,3 +90,9 @@ def test_second_request_and_transport(runs):
     assert (nl, scale) == tuple(vm.executor._last_outputs[1][0])
     got, nl2, scale2 = deserialize_ct(blob, "cpu")
     assert torch.equal(got, want) and (nl2, scale2) == (nl, scale)
+
+
+def test_load_seconds(runs):
+    parts = runs["vm"].load_seconds
+    assert list(parts) == ["read", "galois_keygen", "preencode", "keyset_write"]
+    assert all(v >= 0 for v in parts.values())
