@@ -12,6 +12,7 @@ version for CPU tensors is crypto/ntt.py, chosen by Evaluator._ntt.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MIN_LOGN, MAX_LOGN = 8, 16
 
 # launches of each mode: one per call that launched the kernel (its two
-# passes), counted where it launches and nowhere else
+# passes), counted where it launches and nowhere else. A call under CUDA
+# graph capture records the kernel into the graph and launches nothing, so
+# it is not counted; a replay runs the graph's kernels without this wrapper
+# (they are counted on the device, by the profiler)
 LAUNCHES = {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
 BUILD_INFO = {}          # seconds, nvcc output of the build in this process
 
@@ -95,7 +99,7 @@ def ntt_cuda(x, rows, tables, inverse=False):
     context's device tables (CKKSContext.dev): `q`, `ninv`, `ninv_shoup`
     [P] and `tw`/`tw_shoup` (forward) or `itw`/`itw_shoup` (inverse) [P, N].
     Returns a new int32 [B, N] tensor, launched on the current stream as
-    the kernel's two passes (one count per call)."""
+    the kernel's two passes (one count per call, none under capture)."""
     if x.dim() != 2:
         raise ValueError(f"ntt_cuda: x must be [B, N], got {tuple(x.shape)}")
     b, n = x.shape
@@ -118,6 +122,7 @@ def ntt_cuda(x, rows, tables, inverse=False):
     lib = build()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         rc = lib.dacapo_ntt(
             x.data_ptr(), y.data_ptr(), rows.data_ptr(), b, logn, int(inverse),
             tw.data_ptr(), tws.data_ptr(), tables["q"].data_ptr(),
@@ -125,5 +130,31 @@ def ntt_cuda(x, rows, tables, inverse=False):
     if rc != 0:
         raise RuntimeError(
             f"CUDA NTT launch failed: {lib.dacapo_cuda_error_string(rc).decode()}")
-    LAUNCHES["ntt_inv_cuda" if inverse else "ntt_fwd_cuda"] += 1
+    if not capturing:
+        LAUNCHES["ntt_inv_cuda" if inverse else "ntt_fwd_cuda"] += 1
     return y
+
+
+_PASS_NAME = re.compile(r"ntt_pass<\s*\d+\s*,\s*(\w+)\s*,\s*(\w+)\s*>")
+
+
+def launches_in_profile(events):
+    """NTT calls of each mode that a torch.profiler trace saw run on the
+    device, graph replays included: `events` are the trace's
+    key_averages(). Each call runs one `ntt_pass<LOGN, PASS_B, INVERSE>`
+    kernel of each pass, so a mode's calls are its pass-A kernels; unequal
+    pass counts (a trace that lost records) raise. Reads a trace and adds
+    nothing to LAUNCHES."""
+    passes = {}
+    for e in events:
+        m = _PASS_NAME.search(e.key)
+        if m and str(e.device_type).endswith("CUDA"):
+            key = (m.group(2) in ("true", "1"), m.group(1) in ("true", "1"))
+            passes[key] = passes.get(key, 0) + e.count
+    out = {}
+    for name, inverse in (("ntt_fwd_cuda", False), ("ntt_inv_cuda", True)):
+        a, b = passes.get((inverse, False), 0), passes.get((inverse, True), 0)
+        if a != b:
+            raise RuntimeError(f"{name}: the trace holds {a} pass-A and {b} pass-B kernels")
+        out[name] = a
+    return out

@@ -25,6 +25,10 @@ class GaloisStore:
     keys may live in host RAM with at most `budget` bytes on the device at
     once, evicted LRU. With `budget=None` entries stay on the device and it
     behaves like a plain dict.
+
+    `generation` grows whenever a device key tensor is dropped or replaced:
+    a CUDA graph reads the keys at the addresses it was captured with
+    (vm/executor.py recaptures when it changed).
     """
 
     def __init__(self, device, budget=None):
@@ -33,6 +37,14 @@ class GaloisStore:
         self._host = {}              # steps -> np.ndarray uint32 (authoritative)
         self._dev = OrderedDict()    # steps -> int32 tensor (LRU)
         self._dev_bytes = 0
+        self.generation = 0
+
+    def _drop(self, st):
+        """Remove the device copy of key `st` (if any)."""
+        old = self._dev.pop(st, None)
+        if old is not None:
+            self._dev_bytes -= old.nbytes
+            self.generation += 1
 
     def set_budget(self, budget):
         """Switch to host-backed mode (or tighten the budget): device copies
@@ -44,15 +56,13 @@ class GaloisStore:
             if st not in self._host:
                 self._host[st] = to_host(arr)
         while self._dev_bytes > budget and self._dev:
-            _, old = self._dev.popitem(last=False)
-            self._dev_bytes -= old.nbytes
+            self._drop(next(iter(self._dev)))
 
     def __setitem__(self, st, arr):
         if self.budget is None:
             dev = arr if isinstance(arr, torch.Tensor) else to_dev(arr, self.device)
             dev = dev.to(self.device)
-            if st in self._dev:
-                self._dev_bytes -= self._dev[st].nbytes
+            self._drop(st)
             self._dev[st] = dev
             self._dev_bytes += dev.nbytes
             self._host.pop(st, None)
@@ -63,9 +73,7 @@ class GaloisStore:
         """Insert a key host-side only: device residency is decided at first
         use, under whatever budget applies then."""
         self._host[st] = to_host(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
-        old = self._dev.pop(st, None)
-        if old is not None:
-            self._dev_bytes -= old.nbytes
+        self._drop(st)
 
     def __getitem__(self, st):
         dev = self._dev.get(st)
@@ -77,8 +85,7 @@ class GaloisStore:
         self._dev_bytes += dev.nbytes
         if self.budget is not None:
             while self._dev_bytes > self.budget and len(self._dev) > 1:
-                _, old = self._dev.popitem(last=False)
-                self._dev_bytes -= old.nbytes
+                self._drop(next(iter(self._dev)))
         return dev
 
     def __contains__(self, st):

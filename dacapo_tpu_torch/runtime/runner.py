@@ -5,6 +5,14 @@ python/hecate/hecate/runner.py): `HEVM` with keyset autogeneration,
 `load(cst, hevm)`, `setInput` (encrypt), `run`, `getOutput` (decrypt all
 results) and the `printer` result block. Client and server modes are a later
 slice of the port.
+
+`jit` selects the executor's path (vm/executor.py): "auto" (the default) or
+"segment" runs the segment plan, as CUDA graphs that `load` captures on the
+card (`load_seconds["capture"]`) and eagerly on the CPU; True does the same
+(the JAX package's whole-program function is not ported); False dispatches
+per op.
+Unlike the JAX runner, a failed capture raises: no path falls back to
+per-op dispatch by itself.
 """
 
 import json
@@ -29,10 +37,14 @@ class HEVM:
 
     device: "cuda" (the default) or "cpu". Keysets live in
     ~/.hevm/torch/<profile> unless keyset_dir is given; the directory format
-    is shared with the JAX package."""
+    is shared with the JAX package. jit: "auto", "segment", True or False
+    (module docstring)."""
 
-    def __init__(self, profile="tpu_n15", keyset_dir=None, device=None):
+    def __init__(self, profile="tpu_n15", keyset_dir=None, device=None, jit="auto"):
+        if not (jit in ("auto", "segment") or isinstance(jit, bool)):
+            raise ValueError(f"jit must be 'auto', 'segment', True or False, not {jit!r}")
         self.profile = profile
+        self.jit = jit
         self.scheme = Scheme(profile, device=device)
         self.device = self.scheme.device
         self.keyset_dir = keyset_dir or os.path.expanduser(
@@ -68,8 +80,9 @@ class HEVM:
             json.dump({"primes": fingerprint}, f)
 
     def load(self, cst_path, hevm_path):
-        """Constants + bytecode -> executor + pre-encoded plaintexts. The
-        seconds of each part are kept in `load_seconds`."""
+        """Constants + bytecode -> executor + pre-encoded plaintexts, and on
+        the card the segment graphs. The seconds of each part are kept in
+        `load_seconds`."""
         laps = [time.perf_counter()]
 
         def lap():
@@ -88,9 +101,12 @@ class HEVM:
         # persist newly generated galois keys (existing files are kept)
         keymod.save_keyset(self.scheme.keys, self.keyset_dir, skip_existing=True)
         lap()
-        self.load_seconds = dict(zip(
-            ("read", "galois_keygen", "preencode", "keyset_write"),
-            np.diff(laps).tolist()))
+        parts = ["read", "galois_keygen", "preencode", "keyset_write"]
+        if self.device.type == "cuda" and self.jit is not False:
+            self.executor.precompile_segments()
+            lap()
+            parts.append("capture")
+        self.load_seconds = dict(zip(parts, np.diff(laps).tolist()))
 
     def setInput(self, i, data):
         """Encode+encrypt argument i at its compiled (level, scale)."""
@@ -101,7 +117,8 @@ class HEVM:
 
     def run(self):
         n_args = self.prog.arg_length
-        self.executor.run_encrypted([self._arg_cts[i] for i in range(n_args)])
+        self.executor.run_encrypted([self._arg_cts[i] for i in range(n_args)],
+                                    jit=self.jit)
         self._out = self.executor.decrypt_outputs()
         return self._out
 

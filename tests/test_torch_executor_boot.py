@@ -47,25 +47,33 @@ def _golden(x, depth=DEPTH):
     return y
 
 
+def compile_deep(tmp, n):
+    """The deep circuit over n slots traced and compiled by the JAX package
+    (dacapo, waterline 25, test_n10), written to tmp/deep.hevm. Returns
+    (prog, payloads, path)."""
+    load_profile(COMPILER_PROFILES[PROFILE])
+    trace_mod._module.reset()
+    fn = hc.func("c")(_deep_body(n)).eval()
+    cse(fn)
+    canonicalize(fn)
+    payloads = elide_constants(fn)
+    privatize_constants(fn)
+    canonicalize(fn)
+    prog = compile_function(fn, "dacapo", 25)
+    path = str(tmp / "deep.hevm")
+    prog._save_py(path)
+    return prog, payloads, path
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setenv("DACAPO_TPU_ORACLE_JIT", "0")
     try:
-        load_profile(COMPILER_PROFILES[PROFILE])
         ref = RefScheme(PROFILE)
         ref.generate_keys()
         n = ref.ctx.config.n_slots
-        trace_mod._module.reset()
-        fn = hc.func("c")(_deep_body(n)).eval()
-        cse(fn)
-        canonicalize(fn)
-        payloads = elide_constants(fn)
-        privatize_constants(fn)
-        canonicalize(fn)
-        prog = compile_function(fn, "dacapo", 25)
-        path = str(tmp_path_factory.mktemp("boot") / "deep.hevm")
-        prog._save_py(path)
+        prog, payloads, path = compile_deep(tmp_path_factory.mktemp("boot"), n)
 
         x = np.random.default_rng(0).uniform(0.4, 0.9, n)
         ex = RefExecutor(ref, prog, payloads)

@@ -23,9 +23,10 @@ from dacapo_tpu_torch.models.mlp import mlp_plain, make_input
 PROFILE = "test_n11"
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("mlp")
+def compile_mlp(tmp):
+    """The MLP traced and compiled by the JAX package (pars, waterline 25,
+    test_n11), written to tmp/MLP.hevm and tmp/MLP.cst. Returns
+    (prog, payloads, weights, hevm_path, cst_path)."""
     load_profile(COMPILER_PROFILES[PROFILE])
     weights = gen_weights()
     trace_mod._module.reset()
@@ -40,6 +41,13 @@ def runs(tmp_path_factory):
     hevm_path, cst_path = str(tmp / "MLP.hevm"), str(tmp / "MLP.cst")
     prog._save_py(hevm_path)
     write_cst(payloads, cst_path)
+    return prog, payloads, weights, hevm_path, cst_path
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mlp")
+    prog, payloads, weights, hevm_path, cst_path = compile_mlp(tmp)
 
     x = make_input(0)
     s = RefScheme(PROFILE)

@@ -278,3 +278,30 @@ def test_umin_reductions():
             np.testing.assert_array_equal(np.minimum(s, s - q), (a.astype(np.int64) + b) % q)
             np.testing.assert_array_equal(np.minimum(d, d + q), (a.astype(np.int64) - b) % q)
             np.testing.assert_array_equal(np.minimum(v, v - q), v.astype(np.int64) % q)
+
+
+class _TraceRow:
+    """One key_averages() row of a torch.profiler trace."""
+
+    def __init__(self, key, count, device_type="DeviceType.CUDA"):
+        self.key, self.count, self.device_type = key, count, device_type
+
+
+def test_launches_in_profile():
+    """NTT calls counted from a trace's kernel names (how the kernels that
+    run inside CUDA graphs are counted): one pass-A kernel per call, pass B
+    equal, host rows ignored, a trace with unequal passes refused."""
+    from dacapo_tpu_torch.crypto.cuda.ntt_kernel import launches_in_profile
+    name = "void (anonymous namespace)::ntt_pass<{}, {}, {}>(unsigned int const*, unsigned int*)"
+    rows = [_TraceRow(name.format(15, "false", "false"), 7),
+            _TraceRow(name.format(15, "true", "false"), 7),
+            _TraceRow(name.format(11, "true", "true"), 3),
+            _TraceRow(name.format(11, "false", "true"), 3),
+            _TraceRow(name.format(16, "false", "true"), 2),
+            _TraceRow(name.format(16, "true", "true"), 2),
+            _TraceRow("ntt_pass<15, false, false> (host)", 9, "DeviceType.CPU"),
+            _TraceRow("cudaGraphLaunch", 4, "DeviceType.CPU")]
+    assert launches_in_profile(rows) == {"ntt_fwd_cuda": 7, "ntt_inv_cuda": 5}
+    assert launches_in_profile([]) == {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
+    with pytest.raises(RuntimeError, match="pass-A"):
+        launches_in_profile(rows[:1])
