@@ -45,7 +45,21 @@
    mul (relinearise), rescale, decrypt; checks the RMS against a*b, the
    output ciphertext bit-equal to the same calls with device="cpu", and that
    both kernel modes ran and the plain NTT never did;
-8. prints the kernel table as one JSON line (launches: the profiled ResNet
+8. the native bootstrap (ModRaise, CoeffToSlot, EvalMod, SlotToCoeff):
+   (a) the test_boot bootstrap of tests/test_bootstrap.py on the card, its
+   output ciphertext's SHA-256 equal to the JAX package's committed digest;
+   (c) HEVM("tpu_n15b") (native bootstraps, radix 7) loads the committed
+   deep DaCapo program (depth 20, 2 bootstraps to level 14, 2^14 slots) on a
+   fresh keyset, the load running each bootstrap once (its galois keys,
+   conjugation key and diagonals are made there) and capturing the graphs;
+   three timed segmented requests (RMS against the plaintext model <= 1e-4,
+   2 native bootstraps each, the NTT kernel launched in both modes, the
+   plain NTT never), the second rerun per-op with the input RNG restored
+   (bit-equal), one request timed by window and one profiled; (b) on the
+   same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
+   and nl=2 to level 14 (RMS <= 1e-5), timed three times, one bootstrap
+   profiled (idle share, kernels, NTT calls of each mode on the device);
+9. prints the kernel table as one JSON line (launches: the profiled ResNet
    request's, counted on the device; every path's under launches_by_path),
    then the card's name and power limit, then {"ok": true, "device":
    {...}} as the last line.
@@ -71,6 +85,8 @@ ARTIFACT = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "mlp_pars40_tpu_n
 RESNET_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "resnet_dacapo40_tpu_n15")
 RESNET_CKPT = os.path.join(REPO, "examples", "data", "resnet20.silu.model")
 RESNET_TRACE = os.path.join(REPO, "traced", "resnet_torch")     # gitignored
+NATIVE_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "deep_dacapo40_tpu_n15b")
+TEST_BOOT_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "native_test_boot")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # H100 SXM 32-bit integer instructions a second: 64 INT32 lanes per SM (half
@@ -79,6 +95,8 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 RMS_BAR = 1e-6
 RMS_BAR_N16 = 1e-3
 RMS_BAR_RESNET = 9.5152e-4     # the reference's published ResNet-20 RMS
+RMS_BAR_NATIVE_BOOT = 1e-5     # the standalone tpu_n15b bootstrap (JAX on the TPU: 3.087e-6)
+RMS_BAR_NATIVE_DEEP = 1e-4     # the deep DaCapo program on tpu_n15b
 N_TIMED = 25
 
 
@@ -91,6 +109,13 @@ def sh(cmd):
         return subprocess.run(cmd, capture_output=True, text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e.__class__.__name__})"
+
+
+def reset_counts(nk, ntt_mod):
+    """Set the NTT kernel's launch counts and the plain NTT's call counts to 0."""
+    for counts in (nk.LAUNCHES, ntt_mod.CALLS):
+        for k in counts:
+            counts[k] = 0
 
 
 def card_line():
@@ -151,8 +176,11 @@ def kernel_checks(torch, params, ntt_mod, nk):
     max_err = {"fwd": 0, "inv": 0}
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1234)
+    # tpu_n15b: ModDown / mod_raise_pair (2 x 60 rows) and ModUp (4 digits x
+    # 60 targets) at nl = 60, the native bootstrap's new shapes
     for profile, batches in (("tpu_n15", (2, 14, 56, 112, 2240)), ("test_n11", (2, 37)),
-                             ("test_n8", (2, 9)), ("tpu_n16", (2, 42, 126))):
+                             ("test_n8", (2, 9)), ("tpu_n16", (2, 42, 126)),
+                             ("tpu_n15b", (120, 240))):
         ctx = params.CKKSContext(params.PROFILES[profile], "cuda")
         tab = ctx.dev
         for b in batches:
@@ -179,7 +207,7 @@ def kernel_checks(torch, params, ntt_mod, nk):
             n_primes = len(set(rows.tolist()))
             for mode in ("fwd", "inv"):
                 k_ms = time_cuda(kern[mode], torch, flush)
-                p_ms = time_cuda(plain[mode], torch, flush) if b <= 126 else None
+                p_ms = time_cuda(plain[mode], torch, flush) if b <= 240 else None
                 bound, by = ntt_bound_ms(b, ctx.n, n_primes, mode == "inv")
                 results[mode][(profile, b)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                                    bound_by=by)
@@ -220,7 +248,7 @@ def graph_kernels(prof):
     return [per_id[c] for c in launch_ids], names
 
 
-def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True):
+def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_loss_ok=False):
     """One request under torch.profiler, with the NTT counts set to 0 just
     before it and read just after: device time by kernel, the NTT kernel's
     share, and the device's idle share of the request's wall time. Device
@@ -231,14 +259,18 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True):
     device ran (nk.launches_in_profile, graph replays included);
     ntt_wrapper_launches: the calls the wrapper launched itself, outside
     graphs. Without replays the two must be equal. cpu=False records
-    device activity and the runtime calls only (lighter on a long request)."""
+    device activity and the runtime calls only (lighter on a long request).
+    trace_loss_ok: a trace that holds fewer NTT calls than the wrapper
+    launched is reported (ntt_trace_short_by), not raised: the native
+    bootstrap's traces drop a few kernel records (a standalone bootstrap's
+    trace held one NTT call of each mode fewer than the wrapper launched, in
+    two runs, and 69,890 device kernels and copies against 69,895 kernel
+    launch calls)."""
     from torch.profiler import profile, ProfilerActivity
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     replays0 = executor.replays
     torch.cuda.synchronize()
-    for counts in (nk.LAUNCHES, ntt_mod.CALLS):
-        for k in counts:
-            counts[k] = 0
+    reset_counts(nk, ntt_mod)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         request()
@@ -291,10 +323,16 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True):
             f"(largest {max(per_graph)})")
     log(f"[{tag}] NTT calls the device ran {ntt_launches}, the wrapper launched outside "
         f"graphs {wrapper}, plain NTT calls {plain}")
-    if any(ntt_launches[k] < wrapper[k] for k in wrapper):
+    short = {k: wrapper[k] - ntt_launches[k] for k in wrapper if ntt_launches[k] < wrapper[k]}
+    out["ntt_trace_short_by"] = short
+    if short and not trace_loss_ok:
         raise AssertionError(f"the trace holds fewer NTT calls than the wrapper launched: "
                              f"{ntt_launches} < {wrapper}")
-    if replays == 0 and ntt_launches != wrapper:
+    if short:
+        log(f"[{tag}] the trace holds fewer NTT calls than the wrapper launched, short by "
+            f"{short}: it dropped records (device kernels and copies {out['device_ops']}, "
+            f"kernel launch calls {eager})")
+    elif replays == 0 and ntt_launches != wrapper:
         raise AssertionError(f"without graphs the trace's NTT calls {ntt_launches} differ "
                              f"from the wrapper's {wrapper}")
     if busy:
@@ -314,10 +352,7 @@ def serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params, keydir):
         expected = json.load(f)
     weights = mlp.gen_weights()
     phases = {}
-    for k in nk.LAUNCHES:
-        nk.LAUNCHES[k] = 0
-    for k in ntt_mod.CALLS:
-        ntt_mod.CALLS[k] = 0
+    reset_counts(nk, ntt_mod)
 
     def mark(name, t0):
         torch.cuda.synchronize()
@@ -499,10 +534,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
     for i in range(3):
-        for k in nk.LAUNCHES:
-            nk.LAUNCHES[k] = 0
-        for k in ntt_mod.CALLS:
-            ntt_mod.CALLS[k] = 0
+        reset_counts(nk, ntt_mod)
         ex.bootstrapper.calls = 0
         torch.cuda.reset_peak_memory_stats()
         state = rng.state
@@ -621,10 +653,7 @@ def scheme_n16(np, torch, Scheme, nk, ntt_mod, params):
         return params.to_host(c.data), out, t
 
     ct_cpu, _, t_cpu = run("cpu")
-    for k in nk.LAUNCHES:
-        nk.LAUNCHES[k] = 0
-    for k in ntt_mod.CALLS:
-        ntt_mod.CALLS[k] = 0
+    reset_counts(nk, ntt_mod)
     ct_gpu, out, t_gpu = run("cuda")
     launches, plain_calls = dict(nk.LAUNCHES), dict(ntt_mod.CALLS)
     rms = float(np.sqrt(np.mean((out - a * b) ** 2)))
@@ -644,6 +673,218 @@ def scheme_n16(np, torch, Scheme, nk, ntt_mod, params):
         raise AssertionError(f"the plain NTT ran in the tpu_n16 phase: {plain_calls}")
     return dict(rms=rms, ct_equal=equal, launches=launches, card=t_gpu, cpu=t_cpu)
 
+def deep_golden(np, x, depth):
+    """The plaintext model of the deep program (scripts/make_native_artifact.py)."""
+    y = x.copy()
+    for i in range(depth):
+        y = y * x
+        y = y + np.roll(y, -(1 + i))
+        y = y * 0.9
+    return y
+
+
+def native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params):
+    """(a) The test_boot bootstrap on the card (tests/test_bootstrap.py's
+    call, the seed of tests/test_torch_bootstrap_native.py): its output
+    ciphertext must hash to the JAX package's committed digest."""
+    with open(os.path.join(TEST_BOOT_ART, "expected.json")) as f:
+        expected = json.load(f)
+    t0 = time.perf_counter()
+    s = Scheme("test_boot", seed=6)
+    s.generate_keys()
+    bs = s.enable_native_bootstrap(BootstrapConfig(K=16, r=3, degree=36, baby=8))
+    vals = np.random.default_rng(3).uniform(-1, 1, s.ctx.config.n_slots)
+    ct = s.encrypt(vals, scale=2.0 ** 25, nl=2)
+    data, (_, scale) = bs.bootstrap(ct.data, 2, ct.scale, 1)
+    digest = hashlib.sha256(params.to_host(data).astype("<u4").tobytes()).hexdigest()
+    rms = float(np.sqrt(np.mean((s.decrypt(Ciphertext(data, scale)) - vals) ** 2)))
+    res = dict(seconds=time.perf_counter() - t0, sha256=digest, rms=rms,
+               match=digest == expected["output_ct_sha256"])
+    log(f"[native] test_boot bootstrap on the card: sha256 {digest} (JAX package: "
+        f"{expected['output_ct_sha256']}) match={res['match']}, rms {rms:.3e}, "
+        f"{res['seconds']:.2f} s")
+    if not res["match"]:
+        raise AssertionError("the test_boot bootstrap differs from the JAX package's")
+    return res
+
+
+def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir):
+    """(c) HEVM("tpu_n15b") serves the committed deep DaCapo program with
+    native bootstraps, then (b) the standalone bootstrap on the same scheme.
+    Returns (results, the NTT calls of the profiled request on the device,
+    those of the profiled standalone bootstrap)."""
+    from types import SimpleNamespace
+    from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper
+    from dacapo_tpu_torch.crypto.scheme import Ciphertext
+    with open(os.path.join(NATIVE_ART, "expected.json")) as f:
+        expected = json.load(f)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vm = HEVM("tpu_n15b", keyset_dir=keydir)
+    torch.cuda.synchronize()
+    out["keygen_s"] = time.perf_counter() - t0
+    bs = vm.scheme._native_bs
+    radix = 7 if vm.scheme.ctx.config.n_slots >= (1 << 14) else 5     # the runner's rule
+    if not isinstance(bs, NativeBootstrapper) or bs.cfg.radix != radix:
+        raise AssertionError(f"HEVM('tpu_n15b') built {bs!r}, not the radix-{radix} "
+                             "native bootstrapper")
+    t0 = time.perf_counter()
+    vm.load(os.path.join(NATIVE_ART, "Deep.cst"), os.path.join(NATIVE_ART, "Deep.hevm"))
+    out["load_s"] = time.perf_counter() - t0
+    out["load_parts_s"] = vm.load_seconds
+    ex = vm.executor
+    if ex.bootstrapper is not bs:
+        raise AssertionError("the executor does not run the native bootstrapper")
+    keys = vm.scheme.keys
+    out.update(instructions=len(vm.prog.ops), galois_keys_counted=ex.n_keys,
+               key_bytes_counted=ex.key_bytes, galois_keys_made=len(keys.galois),
+               bootstrap_rotation_keys=len(bs.rotation_steps()),
+               conj_key=keys.conj is not None, capture=ex.capture_stats,
+               after_load_bytes=torch.cuda.memory_allocated(),
+               peak_load_bytes=torch.cuda.max_memory_allocated())
+    log(f"[native] keygen {out['keygen_s']:.3f} s; load {out['load_s']:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in vm.load_seconds.items()))
+    log(f"[native] {out['instructions']} instructions; galois keys {len(keys.galois)} made "
+        f"({ex.n_keys} counted, {out['bootstrap_rotation_keys']} of them the bootstrap's) + "
+        f"conjugation key, {ex.key_bytes} bytes; graphs {ex.capture_stats}; "
+        f"{out['after_load_bytes']} bytes allocated "
+        f"after load, peak {out['peak_load_bytes']}")
+    if "bootstrap_warmup" not in vm.load_seconds or len(keys.galois) != ex.n_keys:
+        raise AssertionError("the load did not make the bootstrap's keys")
+
+    x = np.random.default_rng(expected["input_seed"]).uniform(
+        *expected["input_range"], vm.scheme.ctx.config.n_slots)
+    want = deep_golden(np, x, expected["depth"])
+    rng = vm.scheme.keygen.rng.bit_generator
+    requests = []
+    for i in range(3):
+        reset_counts(nk, ntt_mod)
+        calls0, n_keys0 = bs.calls, len(keys.galois)
+        torch.cuda.reset_peak_memory_stats()
+        state = rng.state
+        t0 = time.perf_counter()
+        vm.setInput(0, x)
+        vm.run()
+        res = vm.getOutput()[0]
+        torch.cuda.synchronize()
+        r = dict(request_s=time.perf_counter() - t0, ntt_launches=dict(nk.LAUNCHES),
+                 plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls - calls0,
+                 keys_made=len(keys.galois) - n_keys0,
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        r["rms"] = float(np.sqrt(np.mean((res - want) ** 2)))
+        r["min_max"] = [float(want.min()), float(want.max())]
+        requests.append(r)
+        log(f"[native] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
+            f"(bar {RMS_BAR_NATIVE_DEEP}), {r['bootstraps']} native bootstraps, NTT launches "
+            f"{r['ntt_launches']}, plain NTT calls {r['plain_ntt_calls']}, keys made "
+            f"{r['keys_made']}, peak {r['peak_bytes']} bytes")
+        if res.shape != x.shape or not np.isfinite(res).all():
+            raise AssertionError("bad output of the deep program")
+        if not r["rms"] <= RMS_BAR_NATIVE_DEEP:
+            raise AssertionError(f"deep program rms {r['rms']} > {RMS_BAR_NATIVE_DEEP}")
+        if r["bootstraps"] != expected["bootstraps"] or expected["bootstraps"] < 2:
+            raise AssertionError(f"{r['bootstraps']} native bootstraps ran, the program "
+                                 f"has {expected['bootstraps']}")
+        if min(r["ntt_launches"].values()) <= 0 or any(r["plain_ntt_calls"].values()):
+            raise AssertionError(f"the NTT kernel did not carry the request: {r}")
+        if r["keys_made"]:
+            raise AssertionError("a request made keys the load should have made")
+        if i == 1:
+            kept_state, kept_outs = state, ex._last_outputs[0]
+    out["requests"] = requests
+    out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
+
+    rng.state = kept_state
+    vm.jit = False
+    t0 = time.perf_counter()
+    vm.setInput(0, x)
+    vm.run()
+    torch.cuda.synchronize()
+    vm.jit = "auto"
+    out["per_op_request_s"] = time.perf_counter() - t0
+    out["segment_equals_per_op"] = all(
+        torch.equal(a, b) for a, b in zip(ex._last_outputs[0], kept_outs))
+    log(f"[native] request median of 3 (segment) {out['request_median_s']:.3f} s; the "
+        f"second per-op {out['per_op_request_s']:.3f} s, output ciphertexts bit-equal: "
+        f"{out['segment_equals_per_op']}")
+    if not out["segment_equals_per_op"]:
+        raise AssertionError("the deep program's segment and per-op outputs differ")
+
+    ex.set_profiling(True)
+    vm.setInput(0, x)
+    vm.run()
+    ex.set_profiling(False)
+    out["windows_by_kind"] = ex.seg_report(sys.stdout)
+
+    boot_s = []
+    native = bs.bootstrap
+
+    def timed_bootstrap(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = native(*args)
+        torch.cuda.synchronize()
+        boot_s.append(time.perf_counter() - t0)
+        return res
+
+    def request():
+        vm.setInput(0, x)
+        vm.run()
+
+    bs.bootstrap = timed_bootstrap
+    try:
+        prof = out["profiled_request"] = profile_request(torch, request, "native", ex, nk,
+                                                         ntt_mod, cpu=False,
+                                                         trace_loss_ok=True)
+    finally:
+        del bs.bootstrap
+    prof["bootstrap_s"] = boot_s
+    req_launches = prof["ntt_launches"]
+    if min(req_launches.values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+        raise AssertionError(f"the profiled deep request: NTT {req_launches}, plain "
+                             f"{prof['plain_ntt_calls']}")
+
+    # (b) the standalone bootstrap on the same scheme
+    torch.cuda.reset_peak_memory_stats()
+    s = vm.scheme
+    vals = np.random.default_rng(3).uniform(-1, 1, s.ctx.config.n_slots)
+    ct = s.encrypt(vals, scale=2.0 ** s.ctx.config.scale_bits, nl=2)
+    sb = out["standalone"] = {}
+    times = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data, (nl2, scale) = bs.bootstrap(ct.data, 2, ct.scale, 14)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sb["first_call_s"], sb["seconds"] = times[0], times[1:]
+    sb["median_s"] = statistics.median(times[1:])
+    err = s.decrypt(Ciphertext(data, scale)) - vals
+    sb.update(level=nl2 // s.ctx.config.rescale_rows - 1, rows=nl2,
+              rms=float(np.sqrt(np.mean(err * err))), max_abs_err=float(np.abs(err).max()))
+    prof_b = sb["profiled"] = profile_request(
+        torch, lambda: bs.bootstrap(ct.data, 2, ct.scale, 14), "native bootstrap",
+        SimpleNamespace(replays=0), nk, ntt_mod, cpu=False, trace_loss_ok=True)
+    boot_launches = prof_b["ntt_launches"]
+    sb.update(rotation_keys=len(bs.rotation_steps()), conjugation_key=keys.conj is not None,
+              peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[native] standalone bootstrap tpu_n15b nl=2 scale 2^{s.ctx.config.scale_bits} -> "
+        f"level {sb['level']}: "
+        f"rms {sb['rms']:.4e} (bar {RMS_BAR_NATIVE_BOOT}), max |err| {sb['max_abs_err']:.3e}; "
+        f"first call {times[0]:.3f} s, then {', '.join(f'{t:.3f}' for t in times[1:])} s "
+        f"(median {sb['median_s']:.3f}); NTT calls on the device {boot_launches}, device "
+        f"kernels {prof_b['device_ops']}, idle share {prof_b['idle_share']}; "
+        f"{sb['rotation_keys']} rotation keys + conjugation key; peak {sb['peak_bytes']} bytes")
+    if sb["level"] != 14 or not sb["rms"] <= RMS_BAR_NATIVE_BOOT:
+        raise AssertionError(f"standalone bootstrap: level {sb['level']}, rms {sb['rms']}")
+    if min(boot_launches.values()) <= 0 or any(prof_b["plain_ntt_calls"].values()):
+        raise AssertionError(f"the standalone bootstrap: NTT {boot_launches}, plain "
+                             f"{prof_b['plain_ntt_calls']}")
+    out["peak_bytes"] = max([out["peak_load_bytes"], sb["peak_bytes"]]
+                            + [r["peak_bytes"] for r in requests])
+    return out, req_launches, boot_launches
+
 
 def main():
     import numpy as np
@@ -657,7 +898,8 @@ def main():
     sys.path.insert(0, REPO)
     from dacapo_tpu_torch import HEVM
     from dacapo_tpu_torch.crypto import ntt as ntt_mod, params
-    from dacapo_tpu_torch.crypto.scheme import Scheme
+    from dacapo_tpu_torch.crypto.bootstrap_native import BootstrapConfig
+    from dacapo_tpu_torch.crypto.scheme import Scheme, Ciphertext
     from dacapo_tpu_torch.crypto.cuda import ntt_kernel as nk
     from dacapo_tpu_torch.models import mlp
 
@@ -673,22 +915,43 @@ def main():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] {line.strip()}")
 
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     results, max_err = kernel_checks(torch, params, ntt_mod, nk)
+    seconds["kernel_checks"] = time.perf_counter() - t0
     # one tpu_n15 keyset: the MLP phase generates it, the ResNet phase adds
     # the rotation keys the MLP lacks
     with tempfile.TemporaryDirectory(prefix="hevm_keys_") as keydir:
+        t0 = time.perf_counter()
         phases, launches, rms_all = serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params,
                                               keydir)
+        seconds["mlp"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         rn, rn_launches = serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir)
+        seconds["resnet"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     n16 = scheme_n16(np, torch, Scheme, nk, ntt_mod, params)
+    seconds["tpu_n16"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    native = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
+    with tempfile.TemporaryDirectory(prefix="hevm_keys_n15b_") as keydir:
+        native["tpu_n15b"], nat_launches, boot_launches = serve_native(
+            np, torch, HEVM, nk, ntt_mod, params, keydir)
+    seconds["native"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     kernels = []
     for mode, name, line in (("fwd", "ntt_fwd_cuda", 94), ("inv", "ntt_inv_cuda", 110)):
         r = results[mode][("tpu_n15", 112)]
+        n15b = {f"B={b}": results[mode][("tpu_n15b", b)] for b in (120, 240)}
         kernels.append(dict(
             name=name, route="cuda", source="dacapo_tpu_torch/csrc/ntt.cu",
             replaces=f"dacapo_tpu/crypto/pallas/ntt_kernel.py:{line}",
@@ -700,14 +963,17 @@ def main():
                               "included); tpu_n16 (no graphs): the wrapper's count"),
             launches_by_path={"resnet_tpu_n15_request": rn_launches[name],
                               "mlp_tpu_n15": launches[name],
-                              "scheme_tpu_n16": n16["launches"][name]}))
+                              "scheme_tpu_n16": n16["launches"][name],
+                              "native_deep_tpu_n15b_request": nat_launches[name],
+                              "native_bootstrap_tpu_n15b": boot_launches[name]},
+            native_shapes_tpu_n15b=n15b))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        ntt={m: {f"{p}/B={b}": v for (p, b), v in r.items()}
                             for m, r in results.items()},
                        mlp=phases, rms=rms_all, resnet=rn, scheme_tpu_n16=n16,
-                       kernels=kernels),
+                       native=native, phase_seconds=seconds, kernels=kernels),
                   f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,6 +1,8 @@
-"""Bootstrapping: the emulated oracle (PyTorch).
+"""Bootstrapping: the emulated oracle and the dispatch (PyTorch).
 
-Port of the `EmulatedBootstrapper` of dacapo_tpu/crypto/bootstrap.py, on its
+Port of dacapo_tpu/crypto/bootstrap.py. `Bootstrapper` picks the native
+bootstrapper (crypto/bootstrap_native.py: ModRaise, CoeffToSlot, EvalMod,
+SlotToCoeff) or the `EmulatedBootstrapper`, ported on its
 host-RNG path: decrypt at the chain bottom -> exact CRT lift to the target
 chain -> re-encrypt with fresh randomness. It is the insecure functional
 oracle the reference ships for SEAL (SEAL_HEVM.cpp:324-334, README.md:160-173
@@ -118,7 +120,22 @@ class EmulatedBootstrapper:
         return torch.stack([c0, c1]), (nl2, scale)
 
 
-def Bootstrapper(scheme):
-    """The port's bootstrapper: the emulated oracle (the native CtS/EvalMod/
-    StC bootstrapper is not ported yet)."""
+def Bootstrapper(scheme, native=None):
+    """The scheme's native bootstrapper once enable_native_bootstrap ran
+    (unless native=False), a new one for native=True, else the oracle.
+
+    Unlike the JAX package, a profile made for native bootstrapping
+    (config.native_bootstrap) never falls back to the oracle by itself: it
+    raises until the native path is enabled, or the caller asks for the
+    oracle with native=False."""
+    nb = scheme._native_bs
+    if nb is not None and native is not False:
+        return nb
+    if native:
+        from .bootstrap_native import NativeBootstrapper
+        return NativeBootstrapper(scheme)
+    if native is None and scheme.ctx.config.native_bootstrap:
+        raise RuntimeError(
+            "this profile bootstraps natively: call scheme.enable_native_bootstrap() "
+            "first (HEVM does), or pass native=False for the oracle")
     return EmulatedBootstrapper(scheme)

@@ -111,6 +111,7 @@ class KeySet:
     pk: object                       # int32 [2, num_q, N] (b, a)
     rlk: object                      # int32 [dnum, 2, num_all, N]
     galois: GaloisStore = None       # steps -> int32 [dnum, 2, num_all, N]
+    conj: object = None              # conjugation key, same shape as rlk
 
 
 def _residues(coeffs: np.ndarray, primes) -> np.ndarray:
@@ -183,6 +184,17 @@ class KeyGenerator:
                 keyset.galois[st] = self._ksk(keyset.s_ntt, s_rot)
         return keyset
 
+    def ensure_conj(self, keyset: KeySet):
+        """Generate the conjugation (X -> X^{-1}) key if missing."""
+        if keyset.conj is None:
+            if keyset.s_ntt is None:
+                raise RuntimeError(
+                    "the keyset has no conjugation key and no secret key to make "
+                    "one: generate the full keyset with the conjugation key first")
+            s_conj = self.ev.conj_apply(keyset.s_ntt)
+            keyset.conj = self._ksk(keyset.s_ntt, s_conj)
+        return keyset
+
     def _ksk(self, s_ntt, target_ntt):
         """Key-switch key from key `target` to key `s`:
         ksk_j = (-a_j s + e_j + [P*Q̂_j^{full}]*target, a_j) over the full QP basis."""
@@ -220,6 +232,7 @@ def save_keyset(keyset: KeySet, dirpath: str, skip_existing=False):
     _put("s_ntt.npy", keyset.s_ntt)
     _put("pk.npy", keyset.pk)
     _put("rlk.npy", keyset.rlk)
+    _put("conj.npy", keyset.conj)
     for st in keyset.galois.keys():
         p = os.path.join("galois", f"{st}.npy")
         if not (skip_existing and os.path.exists(os.path.join(dirpath, p))):
@@ -227,13 +240,16 @@ def save_keyset(keyset: KeySet, dirpath: str, skip_existing=False):
 
 
 def keyset_from_numpy(d, device) -> KeySet:
-    """KeySet from host arrays: d holds uint32 `s_ntt`, `pk`, `rlk` and
-    `galois` ({steps: array}), e.g. a reference KeySet via np.asarray."""
+    """KeySet from host arrays: d holds uint32 `s_ntt`, `pk`, `rlk`, `conj`
+    (each may be absent or None) and `galois` ({steps: array}), e.g. a
+    reference KeySet via np.asarray."""
     dev = torch.device(device)
-    ks = KeySet(s_ntt=to_dev(d["s_ntt"], dev) if d.get("s_ntt") is not None else None,
-                pk=to_dev(d["pk"], dev),
-                rlk=to_dev(d["rlk"], dev) if d.get("rlk") is not None else None,
-                galois=GaloisStore(dev))
+
+    def opt(name):
+        return to_dev(d[name], dev) if d.get(name) is not None else None
+
+    ks = KeySet(s_ntt=opt("s_ntt"), pk=to_dev(d["pk"], dev), rlk=opt("rlk"),
+                conj=opt("conj"), galois=GaloisStore(dev))
     for st, arr in d.get("galois", {}).items():
         ks.galois.put_host(int(st), np.asarray(arr))
     return ks
@@ -253,4 +269,4 @@ def load_keyset(dirpath: str, device) -> KeySet:
             galois[int(f[:-4])] = np.load(os.path.join(gdir, f))
     return keyset_from_numpy(
         dict(s_ntt=_load("s_ntt"), pk=_load("pk"), rlk=_load("rlk"),
-             galois=galois), device)
+             conj=_load("conj"), galois=galois), device)

@@ -1,8 +1,10 @@
 """CKKS evaluator primitives over RNS limb planes (PyTorch).
 
-Port of dacapo_tpu/crypto/ops.py, limited to what the MLP path runs. Every
-op is a plain function of tensors; the level and scale metadata is handled
-by the caller (vm/executor.py), as SEAL tracks ciphertext.scale().
+Port of dacapo_tpu/crypto/ops.py, limited to what the executor and the
+bootstrappers run (the reference's mul_pt_scalar and upscale_rescale have no
+caller there and are not ported). Every op is a plain function of tensors;
+the level and scale metadata is handled by the caller (vm/executor.py,
+crypto/bootstrap_native.py), as SEAL tracks ciphertext.scale().
 
 Ciphertext polys: int32 [2, nl, N] in NTT domain, rows = Q primes 0..nl-1.
 Plaintext:        int32 [nl, N] in NTT domain.
@@ -131,6 +133,12 @@ class Evaluator:
         """Multiply by the per-row scalar ccs[0] (ccs: int32 [2, nl])."""
         return mul_mod(ct, ccs[0][:, None], self._q(range(nl)))
 
+    def upscale(self, ct, nl, up_bits: int):
+        """Exact multiply by 2^up_bits (the native bootstrap's input
+        pre-upscale and Chebyshev doubling)."""
+        return self.upscale_res(
+            ct, nl, to_dev(self.scalar_rows(1 << up_bits, nl), self.device))
+
     def upscale_rescale_res(self, ct, nl, ccs, k: int):
         """Scalar multiply followed by a k-row rescale."""
         return self.rescale_k(self.upscale_res(ct, nl, ccs), nl, k)
@@ -245,6 +253,15 @@ class Evaluator:
         ks0, ks1 = self.keyswitch(mul_mod(a[1], b[1], q), nl, rlk)
         return torch.stack([add_mod(d0, ks0, q), add_mod(d1, ks1, q)])
 
+    def square_ct(self, a, nl, rlk):
+        """ct * ct of one ciphertext with itself + relinearization."""
+        q = self._q(range(nl))
+        d0 = mul_mod(a[0], a[0], q)
+        d1 = mul_mod(a[0], a[1], q)
+        d1 = add_mod(d1, d1, q)
+        ks0, ks1 = self.keyswitch(mul_mod(a[1], a[1], q), nl, rlk)
+        return torch.stack([add_mod(d0, ks0, q), add_mod(d1, ks1, q)])
+
     def automorphism(self, planes, shift: int):
         """Slot-rotation automorphism in the orbit layout: roll each half of
         the last axis by -shift."""
@@ -253,12 +270,24 @@ class Evaluator:
         v = planes.reshape(shp[:-1] + (2, s))
         return torch.roll(v, -int(shift), dims=-1).reshape(shp)
 
+    def conj_apply(self, planes):
+        """Conjugation automorphism in the orbit layout: half swap."""
+        s = self.n // 2
+        shp = planes.shape
+        return planes.reshape(shp[:-1] + (2, s)).flip(-2).reshape(shp)
+
     def rotate(self, ct, nl, steps: int, gk):
         """Left-rotate slots by `steps` with the galois key for that step."""
         shift = steps % (self.n // 2)
         c0p = self.automorphism(ct[0], shift)
         ks0, ks1 = self.keyswitch(self.automorphism(ct[1], shift), nl, gk)
         return torch.stack([add_mod(c0p, ks0, self._q(range(nl))), ks1])
+
+    def conjugate(self, ct, nl, ck):
+        """Complex-conjugate the slots (automorphism X -> X^{-1})."""
+        ks0, ks1 = self.keyswitch(self.conj_apply(ct[1]), nl, ck)
+        return torch.stack([add_mod(self.conj_apply(ct[0]), ks0, self._q(range(nl))),
+                            ks1])
 
     # ------------------------------------------------- hoisted rotation bank
     def rotate_apply(self, digits, c0, nl, shifts, gks):

@@ -177,6 +177,22 @@ PROFILES = {
                             scale_bits=40, rescale_rows=2),
 }
 
+# crypto profile name -> compiler profile json (dacapo_tpu_torch/profiles/)
+COMPILER_PROFILES = {
+    "tpu_n15": "profiled_TPU_n15",
+    "tpu_n15a14": "profiled_TPU_n15",     # same chain/levels as tpu_n15
+    "tpu_n15_sec": "profiled_TPU_n15_sec",
+    "tpu_n16": "profiled_TPU_n16",
+    "tpu_n15b": "profiled_TPU_n15b",
+    "tpu_n14": "profiled_TPU_n14",
+    "test_n10": "profiled_TPU_test_n10",
+    "test_n11": "profiled_TPU_test_n11",
+    "test_boot": "profiled_TPU_test_boot",
+    "test_n11c": "profiled_TPU_test_n11c",
+    "test_n12c": "profiled_TPU_test_n12c",
+}
+
+
 def _shoup_arr(vals, qs):
     """uint32 arrays (val, shoup) for constant-lists vals against moduli qs."""
     v = np.array(vals, dtype=np.uint32)

@@ -48,6 +48,7 @@ class Scheme:
         self.encoder = Encoder(self.ctx)
         self.keygen = KeyGenerator(self.ctx, self.ev, seed=seed)
         self.keys: KeySet = None
+        self._native_bs = None     # set by enable_native_bootstrap
 
     def generate_keys(self, rot_steps=()):
         self.keys = self.keygen.generate(rot_steps)
@@ -64,6 +65,15 @@ class Scheme:
         """Device bytes of ONE rotation key for this context."""
         cfg = self.ctx.config
         return cfg.dnum * 2 * cfg.num_all * self.ctx.n * 4
+
+    def enable_native_bootstrap(self, cfg=None):
+        """Build the native bootstrapper (ModRaise, CoeffToSlot, EvalMod,
+        SlotToCoeff) for this scheme; afterwards Bootstrapper(scheme) and
+        the executor use it."""
+        from .bootstrap_native import NativeBootstrapper
+        self.keygen.ensure_conj(self.keys)
+        self._native_bs = NativeBootstrapper(self, cfg)
+        return self._native_bs
 
     # ------------------------------------------------------------ client
     def encode(self, values, scale: float = None, nl: int = None) -> Plaintext:
@@ -137,8 +147,7 @@ class Scheme:
             self.ev.mod_drop(a.data, k * self.ctx.config.rescale_rows), a.scale)
 
     def upscale(self, a: Ciphertext, up_bits: int) -> Ciphertext:
-        ccs = to_dev(self.ev.scalar_rows(1 << up_bits, a.nl), self.device)
-        return Ciphertext(self.ev.upscale_res(a.data, a.nl, ccs),
+        return Ciphertext(self.ev.upscale(a.data, a.nl, up_bits),
                           a.scale * (2.0 ** up_bits))
 
     def rotate(self, a: Ciphertext, steps: int) -> Ciphertext:

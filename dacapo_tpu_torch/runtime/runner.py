@@ -6,6 +6,17 @@ python/hecate/hecate/runner.py): `HEVM` with keyset autogeneration,
 results) and the `printer` result block. Client and server modes are a later
 slice of the port.
 
+On a profile made for native bootstrapping (`native_bootstrap=True`:
+tpu_n15b, tpu_n16) `HEVM()` enables the native bootstrapper
+(crypto/bootstrap_native.py) with the reference's radix rule, and every
+bootstrap runs it; `DACAPO_TPU_BOOT=native` enables it on any sparse-secret
+profile at `load`. On the card, `load` runs each of the program's native
+bootstraps once over a zero input (`load_seconds["bootstrap_warmup"]`), so
+their galois keys, conjugation key and plaintext diagonals are made at load
+and not in the first request; these key draws then come before the first
+`setInput`'s encryption. On the CPU they stay lazy, in the JAX package's
+order.
+
 `jit` selects the executor's path (vm/executor.py): "auto" (the default) or
 "segment" runs the segment plan, as CUDA graphs that `load` captures on the
 card (`load_seconds["capture"]`) and eagerly on the CPU; True does the same
@@ -25,6 +36,7 @@ import numpy as np
 import torch
 
 from ..crypto import keys as keymod
+from ..crypto.bootstrap_native import BootstrapConfig
 from ..crypto.params import to_dev, to_host
 from ..crypto.scheme import Scheme
 from ..ir.serialize import read_cst
@@ -50,6 +62,8 @@ class HEVM:
         self.keyset_dir = keyset_dir or os.path.expanduser(
             f"~/.hevm/torch/{profile}")
         self._load_or_gen_keys()
+        if self.scheme.ctx.config.native_bootstrap:
+            self._native_bootstrapper()
         self.executor = None
         self.prog = None
         self._arg_cts = {}
@@ -79,6 +93,21 @@ class HEVM:
         with open(fp_path, "w") as f:
             json.dump({"primes": fingerprint}, f)
 
+    def _native_bootstrapper(self):
+        """The scheme's native bootstrapper, built once: more slots take a
+        bigger butterfly radix (fewer CtS/StC levels, more rotations per
+        level), the reference's rule (runtime/runner.py:75-82)."""
+        s = self.scheme
+        if s._native_bs is None:
+            cfg = s.ctx.config
+            if cfg.secret_h <= 0:
+                raise ValueError(
+                    f"profile {self.profile!r} has a dense secret: native "
+                    "bootstrapping needs a sparse one (secret_h > 0)")
+            radix = 7 if cfg.n_slots >= (1 << 14) else 5
+            s.enable_native_bootstrap(BootstrapConfig(radix=radix))
+        return s._native_bs
+
     def load(self, cst_path, hevm_path):
         """Constants + bytecode -> executor + pre-encoded plaintexts, and on
         the card the segment graphs. The seconds of each part are kept in
@@ -92,16 +121,25 @@ class HEVM:
 
         self.prog = HEVMProgram.load(hevm_path)
         constants = read_cst(cst_path)
+        if os.environ.get("DACAPO_TPU_BOOT", "") == "native":
+            # the native bootstrap instead of the oracle (reference
+            # HEAAN_HEVM.cpp:386-399 vs SEAL_HEVM.cpp:324-334); one that
+            # __init__ built is kept
+            self._native_bootstrapper()
         lap()
         # the executor generates the program's missing galois keys
         self.executor = HEVMExecutor(self.scheme, self.prog, constants)
         lap()
         self.executor.preprocess()
         lap()
-        # persist newly generated galois keys (existing files are kept)
+        parts = ["read", "galois_keygen", "preencode"]
+        if self.device.type == "cuda" and self.executor.warm_bootstraps():
+            lap()
+            parts.append("bootstrap_warmup")
+        # persist newly generated keys (existing files are kept)
         keymod.save_keyset(self.scheme.keys, self.keyset_dir, skip_existing=True)
         lap()
-        parts = ["read", "galois_keygen", "preencode", "keyset_write"]
+        parts.append("keyset_write")
         if self.device.type == "cuda" and self.jit is not False:
             self.executor.precompile_segments()
             lap()
@@ -117,9 +155,15 @@ class HEVM:
 
     def run(self):
         n_args = self.prog.arg_length
+        keys = self.scheme.keys
+        n_keys = (len(keys.galois), keys.conj is not None)
         self.executor.run_encrypted([self._arg_cts[i] for i in range(n_args)],
                                     jit=self.jit)
         self._out = self.executor.decrypt_outputs()
+        if (len(keys.galois), keys.conj is not None) != n_keys:
+            # keys the native bootstrap made during the run (the CPU makes
+            # them lazily) persist for later runs
+            keymod.save_keyset(keys, self.keyset_dir, skip_existing=True)
         return self._out
 
     def getOutput(self):

@@ -8,8 +8,9 @@ Port of dacapo_tpu/vm/executor.py, two of its paths:
   ops is one CUDA graph, captured at load (`precompile_segments`) and
   replayed on every request: PyTorch's counterpart of the JAX package's
   per-window `jax.jit`. Bootstrap windows (the oracle draws from the host
-  RNG) and tiny windows run eagerly between replays. On the CPU the same
-  plan runs every window eagerly; no graphs exist there.
+  RNG; the native bootstrap is not captured) and tiny windows run eagerly
+  between replays. On the CPU the same plan runs every window eagerly; no
+  graphs exist there.
 * per-op dispatch (`jit=False`): one Evaluator call per (fused)
   instruction, the counterpart of the reference C++ VM dispatch loop
   (lib/Runtime/SEAL_HEVM.cpp:336-401).
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from ..crypto.bootstrap import Bootstrapper
+from ..crypto.bootstrap_native import NativeBootstrapper
 from ..crypto.params import to_dev
 from ..crypto.scheme import Ciphertext
 from .fuse import ssa_expand, build_fuse_plan, OP_ROTMAC, OP_UPRESCALE, cipher_reads
@@ -85,10 +87,20 @@ class HEVMExecutor:
         self.seg_profile = None
         self.capture_stats = None
         self.replays = 0        # graph replays, over all requests
+        # the scheme's native bootstrapper once enable_native_bootstrap ran,
+        # else the oracle
         self.bootstrapper = Bootstrapper(scheme) if any(
             op.opcode == OP_BOOTSTRAP for op in program.ops) else None
-        self.n_keys = len({o for o in program.rotation_offsets() if o != 0})
-        self.key_bytes = self.n_keys * scheme.galois_key_bytes()
+        # device bytes of the keys a request reads: the program's rotation
+        # keys and, with native bootstraps, their rotation keys and the
+        # conjugation key
+        n_slots = scheme.ctx.config.n_slots
+        steps = {o % n_slots for o in program.rotation_offsets() if o % n_slots}
+        native = isinstance(self.bootstrapper, NativeBootstrapper)
+        if native:
+            steps.update(self.bootstrapper.rotation_steps())
+        self.n_keys = len(steps)
+        self.key_bytes = (self.n_keys + native) * scheme.galois_key_bytes()
         self._set_memory_budgets()
         self._prepare_keys()
 
@@ -105,6 +117,28 @@ class HEVMExecutor:
 
     def _prepare_keys(self):
         self.s.ensure_galois([o for o in self.prog.rotation_offsets() if o != 0])
+
+    def warm_bootstraps(self):
+        """Run each distinct native bootstrap of the program (input level,
+        scale and target, by the metadata walk from the compiled arguments)
+        once over a zero ciphertext: its galois keys, conjugation key and
+        plaintext diagonals are made now. HEVM.load does this on the card,
+        after preprocess; the CPU keeps the JAX package's lazy order.
+        Returns the number run."""
+        if not isinstance(self.bootstrapper, NativeBootstrapper):
+            return 0
+        meta = dict(enumerate(self._arg_meta()))
+        seen = set()
+        for op in self.ops:
+            if op.opcode == OP_BOOTSTRAP:
+                nl, sc = meta[op.lhs]
+                if (nl, sc, op.rhs) not in seen:
+                    seen.add((nl, sc, op.rhs))
+                    zero = torch.zeros((2, nl, self.s.ctx.n), dtype=torch.int32,
+                                       device=self.s.device)
+                    self.bootstrapper.bootstrap(zero, nl, sc, op.rhs)
+            self._meta_step(op, meta)
+        return len(seen)
 
     # ------------------------------------------------------------ preprocess
     def preprocess(self):
@@ -366,8 +400,9 @@ class HEVMExecutor:
                     ciphers[op.lhs], self._plain(op.rhs, nl), nl)
                 meta[op.dst] = (nl, sa * psc)
             elif oc == OP_BOOTSTRAP:
-                # scale-preserving (the oracle reheats after a cooled lift):
-                # the level becomes (target_level + 1) * rr rows
+                # scale-preserving (the oracle reheats after a cooled lift,
+                # the native path lands its StC on the input scale): the
+                # level becomes (target_level + 1) * rr rows
                 nl, sc = meta[op.lhs]
                 ciphers[op.dst], meta[op.dst] = self.bootstrapper.bootstrap(
                     ciphers[op.lhs], nl, sc, op.rhs)
@@ -483,7 +518,7 @@ class HEVMExecutor:
 
     def _meta_step(self, op, meta):
         """Metadata transition of one op (mirrors _exec_stream bookkeeping).
-        The bootstrap rule is scale-preserving, like the oracle."""
+        The bootstrap rule is scale-preserving, like both bootstrappers."""
         oc = op.opcode
         if oc in (OP_ALLOC, OP_ENCODE):
             return
@@ -636,7 +671,7 @@ class HEVMExecutor:
         return dict(graph=graph, ins=ins, outs=outs, warmup_s=t1 - t0, capture_s=t2 - t1)
 
     def _run_segmented(self, arg_cts):
-        """Replay walk: per window, the oracle (boot), an eager _exec_stream
+        """Replay walk: per window, the bootstrap (boot), an eager _exec_stream
         (no graph: tiny windows, and every window on the CPU), or: copy each
         input that is not already the graph's own static input in, replay,
         and bind the static outputs. Returns copies of the outputs, since the

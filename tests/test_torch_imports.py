@@ -38,7 +38,7 @@ def test_no_jax_and_no_reference_package():
     proc = _run(_PROBE)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 26
+    assert int(count) >= 28
     assert bad == "[]", bad
 
 
