@@ -10,7 +10,12 @@
    (N=2^15), at N=2^11, at test_n8 (N=2^8) and at the rescale / ModUp
    shapes of tpu_n16 (N=2^16), and times them (device time by CUDA events,
    L2 flushed before each run, median of 25);
-4. serves the committed MLP artifact (pars/40, tpu_n15) through
+4. compiles, on the host, with the port's own tracer and planner
+   (runtime/harness.py): the MLP (pars/40, tpu_n15) and the deep DaCapo
+   circuit (dacapo/40, tpu_n15b, depth 20); each .hevm and .cst must equal
+   the committed artifact byte for byte, and the MLP and native phases serve
+   these files; logs the trace and compile seconds;
+5. serves the MLP the port compiled through
    HEVM.load / setInput / run / getOutput for three requests on a freshly
    generated keyset, on the default segment path (load captures one CUDA
    graph per window), checks each RMS against the numpy model and the first
@@ -18,7 +23,7 @@
    NTT never ran; then runs one ciphertext through executor.run_encrypted
    with jit="segment" and jit=False and requires bit-equal outputs, and
    times three requests per-op (jit=False) for the other median;
-5. profiles one more segmented request (device time by kernel, device
+6. profiles one more segmented request (device time by kernel, device
    kernels, kernels per graph launch, host launch calls, graph replays,
    idle share) with the NTT counts set to 0 just before it: both kernel
    modes must have run, counted on the device (the ntt_pass kernels in the
@@ -26,31 +31,35 @@
    makes outside graphs); then one per-op request, where the trace's count
    must equal the wrapper's; and times the parts of load, graph capture
    included;
-6. ResNet-20 `dacapo 40` (tpu_n15) with the trained checkpoint, full width
+7. ResNet-20 `dacapo 40` (tpu_n15) with the trained checkpoint, full width
    and depth: traces it with the port and checks its .cst (and its .eir.json
    without source locations) against the JAX package's digests, loads the
    committed .hevm on the MLP's keyset (only the missing rotation keys are
-   generated; the load captures the graphs), times keygen / galois keygen /
-   pre-encode / capture and reports the plaintext and key bytes and the
+   generated; the load captures the device oracle's graphs, one per cache
+   key, and the segment graphs), times keygen / galois keygen / pre-encode /
+   oracle capture / capture and reports the plaintext and key bytes and the
    graphs' count; serves three timed segmented requests, checks the RMS of
    the 10 logits of each against the torch model (bar 9.5152e-4, the
-   reference's), that 19 bootstraps ran in each and the plain NTT never
-   did; reruns the second request per-op (jit=False) with the oracle's RNG
-   restored and requires bit-equal output ciphertexts; reports peak device
-   memory, times one request's windows by kind (a synchronize after each
-   window) and profiles one more segmented request (oracle seconds, kernels
-   per graph launch) in which both kernel modes must have run, counted on
-   the device as in 5;
-7. runs Scheme("tpu_n16", seed=5) on the card: keygen, encrypt two vectors,
+   reference's), that 19 bootstraps ran in each, each one a replay of an
+   oracle graph captured at load, and that the plain NTT never ran; reruns
+   the second request per-op (jit=False, which replays the same oracle
+   graphs) with both generators restored (the key generator's, which
+   encrypts the input, and the oracle's on the card) and requires bit-equal
+   output ciphertexts; reports peak device memory, times one request's
+   windows by kind (a synchronize after each window: the boot windows'
+   seconds) and profiles one more segmented request (oracle seconds, host
+   launch calls, idle share, kernels per graph launch) in which both kernel
+   modes must have run, counted on the device as in 6;
+8. runs Scheme("tpu_n16", seed=5) on the card: keygen, encrypt two vectors,
    mul (relinearise), rescale, decrypt; checks the RMS against a*b, the
    output ciphertext bit-equal to the same calls with device="cpu", and that
    both kernel modes ran and the plain NTT never did;
-8. the native bootstrap (ModRaise, CoeffToSlot, EvalMod, SlotToCoeff):
+9. the native bootstrap (ModRaise, CoeffToSlot, EvalMod, SlotToCoeff):
    (a) the test_boot bootstrap of tests/test_bootstrap.py on the card, its
    output ciphertext's SHA-256 equal to the JAX package's committed digest;
-   (c) HEVM("tpu_n15b") (native bootstraps, radix 7) loads the committed
-   deep DaCapo program (depth 20, 2 bootstraps to level 14, 2^14 slots) on a
-   fresh keyset, the load running each bootstrap once (its galois keys,
+   (c) HEVM("tpu_n15b") (native bootstraps, radix 7) loads the deep DaCapo
+   program the port compiled in 4 (depth 20, 2 bootstraps to level 14, 2^14
+   slots) on a fresh keyset, the load running each bootstrap once (its galois keys,
    conjugation key and diagonals are made there) and capturing the graphs;
    three timed segmented requests (RMS against the plaintext model <= 1e-4,
    2 native bootstraps each, the NTT kernel launched in both modes, the
@@ -59,10 +68,10 @@
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
    and nl=2 to level 14 (RMS <= 1e-5), timed three times, one bootstrap
    profiled (idle share, kernels, NTT calls of each mode on the device);
-9. prints the kernel table as one JSON line (launches: the profiled ResNet
-   request's, counted on the device; every path's under launches_by_path),
-   then the card's name and power limit, then {"ok": true, "device":
-   {...}} as the last line.
+10. prints the kernel table as one JSON line (launches: the profiled
+    ResNet request's, counted on the device; every path's under
+    launches_by_path), then the card's name and power limit, then
+    {"ok": true, "device": {...}} as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without CUDA, or outside a checkout of the repository, it exits 2.
@@ -176,9 +185,13 @@ def kernel_checks(torch, params, ntt_mod, nk):
     max_err = {"fwd": 0, "inv": 0}
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    # tpu_n15b: ModDown / mod_raise_pair (2 x 60 rows) and ModUp (4 digits x
-    # 60 targets) at nl = 60, the native bootstrap's new shapes
-    for profile, batches in (("tpu_n15", (2, 14, 56, 112, 2240)), ("test_n11", (2, 37)),
+    # tpu_n15: the device oracle's shapes at ResNet's bootstraps are B=3 (the
+    # inverse NTT of the decrypted message at its 3 base rows), 28 (m2) and
+    # 84 (the three noise polynomials over 28 rows); tpu_n15b: ModDown /
+    # mod_raise_pair (2 x 60 rows) and ModUp (4 digits x 60 targets) at
+    # nl = 60, the native bootstrap's shapes
+    for profile, batches in (("tpu_n15", (2, 3, 14, 28, 56, 84, 112, 2240)),
+                             ("test_n11", (2, 37)),
                              ("test_n8", (2, 9)), ("tpu_n16", (2, 42, 126)),
                              ("tpu_n15b", (120, 240))):
         ctx = params.CKKSContext(params.PROFILES[profile], "cuda")
@@ -248,6 +261,11 @@ def graph_kernels(prof):
     return [per_id[c] for c in launch_ids], names
 
 
+def graph_replays(executor):
+    """Graph replays so far: the segment graphs' and the device oracle's."""
+    return executor.replays + getattr(getattr(executor, "bootstrapper", None), "replays", 0)
+
+
 def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_loss_ok=False):
     """One request under torch.profiler, with the NTT counts set to 0 just
     before it and read just after: device time by kernel, the NTT kernel's
@@ -255,7 +273,7 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     ops are the kernels (inside graphs or not) and copies the profiler saw
     run on the card; host launches are the launch calls it saw on the host:
     kernel launches outside graphs plus graph launches, the latter checked
-    against the executor's replay counter. ntt_launches: the NTT calls the
+    against the executor's and the oracle's replay counters. ntt_launches: the NTT calls the
     device ran (nk.launches_in_profile, graph replays included);
     ntt_wrapper_launches: the calls the wrapper launched itself, outside
     graphs. Without replays the two must be equal. cpu=False records
@@ -268,7 +286,7 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     launch calls)."""
     from torch.profiler import profile, ProfilerActivity
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    replays0 = executor.replays
+    replays0 = graph_replays(executor)
     torch.cuda.synchronize()
     reset_counts(nk, ntt_mod)
     with profile(activities=acts) as prof:
@@ -277,7 +295,7 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     wrapper, plain = dict(nk.LAUNCHES), dict(ntt_mod.CALLS)
-    replays = executor.replays - replays0
+    replays = graph_replays(executor) - replays0
     averages = prof.key_averages()
     ntt_launches = nk.launches_in_profile(averages)
     per_graph, graph_names = graph_kernels(prof)
@@ -310,12 +328,13 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
                    device_ops_by_name=graph_names),
                idle_share=(1 - busy / wall) if busy else None,
                by_kernel=[dict(device_s=r[0] / 1e6, count=r[1], name=r[2][:120]) for r in rows])
-    log(f"[{tag}] host launches {out['host_launches']} = {replays} graph replays (executor) + "
+    log(f"[{tag}] host launches {out['host_launches']} = {replays} graph replays (executor "
+        f"and oracle) + "
         f"{eager} kernel launches outside graphs (profiler: {calls}); device kernels and "
         f"copies {out['device_ops']}")
     if graph_calls != replays:
         log(f"[{tag}] note: the profiler saw {graph_calls} graph launches, the executor "
-            f"counted {replays} replays")
+            f"and the oracle counted {replays} replays")
     if per_graph is None:
         log(f"[{tag}] kernels per graph launch: not measured (no raw trace events)")
     elif per_graph:
@@ -346,7 +365,51 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     return out
 
 
-def serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params, keydir):
+def compile_programs(out_dir):
+    """The compile phase: the port traces the MLP (pars/40, tpu_n15) and the
+    deep DaCapo circuit (dacapo/40, tpu_n15b, its depth from expected.json)
+    and compiles both with its own planner (runtime/harness.py:
+    compile_traced), on the host. Each .hevm and .cst must equal the
+    committed artifact byte for byte; the MLP and native phases serve these
+    files. Returns ({name: (cst, hevm)}, results)."""
+    from dacapo_tpu_torch.crypto.params import PROFILES
+    from dacapo_tpu_torch.models import deep, mlp
+    from dacapo_tpu_torch.runtime.harness import compile_traced, trace_and_save
+    with open(os.path.join(NATIVE_ART, "expected.json")) as f:
+        depth = json.load(f)["depth"]
+    weights = mlp.gen_weights()
+    jobs = (
+        ("MLP", ARTIFACT, "pars", 40, "tpu_n15",
+         lambda d: trace_and_save("MLP", "c", lambda x: mlp.mlp_forward(x, weights), d)),
+        ("Deep", NATIVE_ART, "dacapo", 40, "tpu_n15b",
+         lambda d: deep.trace_deep(d, PROFILES["tpu_n15b"].n_slots, depth)),
+    )
+    files, results = {}, {}
+    for name, art, pipeline, waterline, profile, trace in jobs:
+        traced = os.path.join(out_dir, "traced")
+        t0 = time.perf_counter()
+        trace(traced)
+        t1 = time.perf_counter()
+        hevm = compile_traced(name, pipeline, waterline, profile, traced_dir=traced,
+                              out_dir=os.path.join(out_dir, "optimized"))
+        t2 = time.perf_counter()
+        cst = os.path.join(traced, f"_hecate_{name}.cst")
+        r = results[name] = dict(
+            pipeline=pipeline, waterline=waterline, profile=profile,
+            trace_s=t1 - t0, compile_s=t2 - t1, hevm_sha256=sha256_file(hevm),
+            cst_sha256=sha256_file(cst),
+            hevm_equal=sha256_file(hevm) == sha256_file(os.path.join(art, f"{name}.hevm")),
+            cst_equal=sha256_file(cst) == sha256_file(os.path.join(art, f"{name}.cst")))
+        log(f"[compile] {name} ({pipeline}/{waterline}, {profile}): trace {r['trace_s']:.3f} s, "
+            f"compile {r['compile_s']:.3f} s; .hevm sha256 {r['hevm_sha256']} equal to the "
+            f"committed file: {r['hevm_equal']}; .cst equal: {r['cst_equal']}")
+        if not (r["hevm_equal"] and r["cst_equal"]):
+            raise AssertionError(f"the port's {name} program differs from {art}")
+        files[name] = (cst, hevm)
+    return files, results
+
+
+def serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params, keydir, files):
     """The MLP on a keyset generated afresh into keydir."""
     with open(os.path.join(ARTIFACT, "expected.json")) as f:
         expected = json.load(f)
@@ -364,7 +427,7 @@ def serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params, keydir):
     vm = HEVM("tpu_n15", keyset_dir=keydir)
     mark("keygen", t0)
     t0 = time.perf_counter()
-    vm.load(os.path.join(ARTIFACT, "MLP.cst"), os.path.join(ARTIFACT, "MLP.hevm"))
+    vm.load(*files["MLP"])
     mark("load", t0)
     ex = vm.executor
     cap = ex.capture_stats
@@ -473,6 +536,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     reference's RMS bar, the second is rerun per-op with the same randomness
     and must give the same ciphertexts, and two more requests are timed by
     window and profiled."""
+    from dacapo_tpu_torch.crypto.bootstrap import EmulatedBootstrapper
     from dacapo_tpu_torch.ir.serialize import function_digest
     from dacapo_tpu_torch.models import cnn_he, resnet
     with open(os.path.join(RESNET_ART, "expected.json")) as f:
@@ -520,6 +584,18 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
                after_load_bytes=torch.cuda.memory_allocated())
     cap = out["capture"] = ex.capture_stats
     out["peak_load_bytes"] = torch.cuda.max_memory_allocated()
+    # the device oracle: one CUDA graph per cache key, captured by the load
+    bs = ex.bootstrapper
+    if not isinstance(bs, EmulatedBootstrapper) or bs.host_rng:
+        raise AssertionError(f"ResNet does not bootstrap on the device oracle: {bs!r}")
+    oracle = out["oracle"] = dict(graphs=len(bs._graphs), capture_s=bs.capture_s,
+                                  keys=[list(k) for k in bs._graphs],
+                                  load_part_s=vm.load_seconds.get("oracle_capture"))
+    log(f"[resnet] device oracle: {oracle['graphs']} graphs (one per cache key "
+        f"(nl, base rows, nl2): {list(bs._graphs)}), captured in {bs.capture_s:.3f} s by "
+        f"the load")
+    if not oracle["graphs"] or oracle["load_part_s"] is None:
+        raise AssertionError("the load captured no oracle graph")
     log(f"[resnet] keyset load {out['keyset_load_s']:.3f} s; load {out['load_s']:.3f} s "
         + ", ".join(f"{k} {v:.3f} s" for k, v in vm.load_seconds.items()))
     log(f"[resnet] {out['instructions']} instructions, {ex.n_plains} unique plaintexts "
@@ -529,38 +605,44 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         f"{cap['warmup_s']:.3f} s, capture and instantiate {cap['capture_s']:.3f} s; peak "
         f"during load {out['peak_load_bytes']} bytes")
 
-    # three timed segmented requests; the second one's input ciphertext, the
-    # oracle's RNG state before it and its outputs are kept for the per-op rerun
+    # three timed segmented requests; the state of both generators before the
+    # second one (the key generator's, which encrypts the input, and the
+    # oracle's on the card) and its outputs are kept for the per-op rerun
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
     for i in range(3):
         reset_counts(nk, ntt_mod)
-        ex.bootstrapper.calls = 0
+        bs.calls = 0
+        replays0 = bs.replays
         torch.cuda.reset_peak_memory_stats()
-        state = rng.state
+        state = rng.state, bs.gen.get_state()
         t0 = time.perf_counter()
         vm.setInput(0, packed)
         vm.run()
         res = vm.getOutput()
         torch.cuda.synchronize()
         r = dict(request_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
-                 plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=ex.bootstrapper.calls,
+                 plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls,
+                 oracle_replays=bs.replays - replays0, oracle_graphs=len(bs._graphs),
                  peak_bytes=torch.cuda.max_memory_allocated())
         logits = cnn_he.resnet_postprocess(res[0])
         r["rms"] = float(np.sqrt(np.mean((logits - want) ** 2)))
         r["logits"] = logits.tolist()
         requests.append(r)
         log(f"[resnet] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
-            f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps, NTT launches outside "
+            f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps ({r['oracle_replays']} "
+            f"oracle graph replays), NTT launches outside "
             f"graphs {r['eager_ntt_launches']}, plain NTT calls {r['plain_ntt_calls']}, peak "
             f"{r['peak_bytes']} bytes allocated")
         if logits.shape != (10,) or not np.isfinite(logits).all():
             raise AssertionError(f"bad ResNet output {logits!r}")
         if not r["rms"] <= RMS_BAR_RESNET:
             raise AssertionError(f"ResNet rms {r['rms']} > {RMS_BAR_RESNET}")
-        if r["bootstraps"] != expected["bootstraps"]:
-            raise AssertionError(f"{r['bootstraps']} bootstraps ran, the program has "
-                                 f"{expected['bootstraps']}")
+        if not r["bootstraps"] == r["oracle_replays"] == expected["bootstraps"]:
+            raise AssertionError(f"{r['bootstraps']} bootstraps ran ({r['oracle_replays']} "
+                                 f"oracle replays), the program has {expected['bootstraps']}")
+        if r["oracle_graphs"] != oracle["graphs"]:
+            raise AssertionError("a request captured an oracle graph the load did not")
         if any(r["plain_ntt_calls"].values()):
             raise AssertionError(f"the plain NTT ran on the ResNet path: {r}")
         if i == 1:
@@ -568,8 +650,10 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
 
-    # the second request again per-op, with the oracle's randomness restored
-    rng.state = kept_state
+    # the second request again per-op, with both generators restored: the
+    # per-op path replays the same oracle graphs
+    rng.state = kept_state[0]
+    bs.gen.set_state(kept_state[1])
     vm.jit = False
     t0 = time.perf_counter()
     vm.setInput(0, packed)
@@ -592,16 +676,19 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     vm.run()
     ex.set_profiling(False)
     out["windows_by_kind"] = ex.seg_report(sys.stdout)
+    boot = out["windows_by_kind"].get("boot", {})
+    log(f"[resnet] boot windows (oracle graph replays, a synchronize after each): "
+        f"{boot.get('seconds', 0.0):.4f} s for {boot.get('windows', 0)}")
 
     # the profiled request also times each oracle bootstrap on the host
-    # clock, between synchronizes (host RNG, CRT lift, NTTs, re-encryption)
+    # clock, between synchronizes (input copy, graph replay, output copy)
     boot_s = []
-    oracle = ex.bootstrapper.bootstrap
+    oracle_bootstrap = bs.bootstrap
 
     def timed_bootstrap(*args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = oracle(*args)
+        res = oracle_bootstrap(*args)
         torch.cuda.synchronize()
         boot_s.append(time.perf_counter() - t0)
         return res
@@ -610,12 +697,12 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         vm.setInput(0, packed)
         vm.run()
 
-    ex.bootstrapper.bootstrap = timed_bootstrap
+    bs.bootstrap = timed_bootstrap
     try:
         prof = out["profiled_request"] = profile_request(torch, request, "resnet", ex, nk,
                                                          ntt_mod, cpu=False)
     finally:
-        del ex.bootstrapper.bootstrap
+        del bs.bootstrap
     prof["bootstrap_s"] = boot_s
     log(f"[resnet] the profiled request's {len(boot_s)} bootstraps: {sum(boot_s):.3f} s "
         f"(min {min(boot_s):.4f}, max {max(boot_s):.4f} s each)")
@@ -673,16 +760,6 @@ def scheme_n16(np, torch, Scheme, nk, ntt_mod, params):
         raise AssertionError(f"the plain NTT ran in the tpu_n16 phase: {plain_calls}")
     return dict(rms=rms, ct_equal=equal, launches=launches, card=t_gpu, cpu=t_cpu)
 
-def deep_golden(np, x, depth):
-    """The plaintext model of the deep program (scripts/make_native_artifact.py)."""
-    y = x.copy()
-    for i in range(depth):
-        y = y * x
-        y = y + np.roll(y, -(1 + i))
-        y = y * 0.9
-    return y
-
-
 def native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params):
     """(a) The test_boot bootstrap on the card (tests/test_bootstrap.py's
     call, the seed of tests/test_torch_bootstrap_native.py): its output
@@ -708,7 +785,7 @@ def native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params):
     return res
 
 
-def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir):
+def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     """(c) HEVM("tpu_n15b") serves the committed deep DaCapo program with
     native bootstraps, then (b) the standalone bootstrap on the same scheme.
     Returns (results, the NTT calls of the profiled request on the device,
@@ -716,6 +793,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir):
     from types import SimpleNamespace
     from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper
     from dacapo_tpu_torch.crypto.scheme import Ciphertext
+    from dacapo_tpu_torch.models.deep import deep_golden
     with open(os.path.join(NATIVE_ART, "expected.json")) as f:
         expected = json.load(f)
     out = {}
@@ -730,7 +808,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir):
         raise AssertionError(f"HEVM('tpu_n15b') built {bs!r}, not the radix-{radix} "
                              "native bootstrapper")
     t0 = time.perf_counter()
-    vm.load(os.path.join(NATIVE_ART, "Deep.cst"), os.path.join(NATIVE_ART, "Deep.hevm"))
+    vm.load(*files["Deep"])
     out["load_s"] = time.perf_counter() - t0
     out["load_parts_s"] = vm.load_seconds
     ex = vm.executor
@@ -755,7 +833,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir):
 
     x = np.random.default_rng(expected["input_seed"]).uniform(
         *expected["input_range"], vm.scheme.ctx.config.n_slots)
-    want = deep_golden(np, x, expected["depth"])
+    want = deep_golden(x, expected["depth"])
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
     for i in range(3):
@@ -919,12 +997,18 @@ def main():
     t0 = time.perf_counter()
     results, max_err = kernel_checks(torch, params, ntt_mod, nk)
     seconds["kernel_checks"] = time.perf_counter() - t0
+    # the programs the MLP and native phases serve, compiled by the port
+    # (removed at exit by the TemporaryDirectory's finalizer)
+    compiled_dir = tempfile.TemporaryDirectory(prefix="hevm_compiled_")
+    t0 = time.perf_counter()
+    files, compiled = compile_programs(compiled_dir.name)
+    seconds["compile"] = time.perf_counter() - t0
     # one tpu_n15 keyset: the MLP phase generates it, the ResNet phase adds
     # the rotation keys the MLP lacks
     with tempfile.TemporaryDirectory(prefix="hevm_keys_") as keydir:
         t0 = time.perf_counter()
         phases, launches, rms_all = serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params,
-                                              keydir)
+                                              keydir, files)
         seconds["mlp"] = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
@@ -942,7 +1026,7 @@ def main():
     native = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
     with tempfile.TemporaryDirectory(prefix="hevm_keys_n15b_") as keydir:
         native["tpu_n15b"], nat_launches, boot_launches = serve_native(
-            np, torch, HEVM, nk, ntt_mod, params, keydir)
+            np, torch, HEVM, nk, ntt_mod, params, keydir, files)
     seconds["native"] = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -952,6 +1036,7 @@ def main():
     for mode, name, line in (("fwd", "ntt_fwd_cuda", 94), ("inv", "ntt_inv_cuda", 110)):
         r = results[mode][("tpu_n15", 112)]
         n15b = {f"B={b}": results[mode][("tpu_n15b", b)] for b in (120, 240)}
+        oracle = {f"B={b}": results[mode][("tpu_n15", b)] for b in (3, 28, 84)}
         kernels.append(dict(
             name=name, route="cuda", source="dacapo_tpu_torch/csrc/ntt.cu",
             replaces=f"dacapo_tpu/crypto/pallas/ntt_kernel.py:{line}",
@@ -966,13 +1051,14 @@ def main():
                               "scheme_tpu_n16": n16["launches"][name],
                               "native_deep_tpu_n15b_request": nat_launches[name],
                               "native_bootstrap_tpu_n15b": boot_launches[name]},
-            native_shapes_tpu_n15b=n15b))
+            native_shapes_tpu_n15b=n15b, oracle_shapes_tpu_n15=oracle))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                        ntt={m: {f"{p}/B={b}": v for (p, b), v in r.items()}
                             for m, r in results.items()},
-                       mlp=phases, rms=rms_all, resnet=rn, scheme_tpu_n16=n16,
+                       compile=compiled, mlp=phases, rms=rms_all, resnet=rn,
+                       scheme_tpu_n16=n16,
                        native=native, phase_seconds=seconds, kernels=kernels),
                   f, indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -266,6 +266,7 @@ class CKKSContext:
         self._build_level_consts()
         self._build_galois_tables()
         self._rot_perm_cache = {}
+        self._col_cache = {}     # crt_lift._col: int64 constant columns
 
     # ------------------------------------------------------------------ NTT
     def _build_ntt_tables(self):

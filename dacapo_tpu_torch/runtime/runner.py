@@ -17,6 +17,13 @@ and not in the first request; these key draws then come before the first
 `setInput`'s encryption. On the CPU they stay lazy, in the JAX package's
 order.
 
+A bootstrap on any other profile runs the oracle (crypto/bootstrap.py), by
+default on its device path: on the card `load` captures one CUDA graph per
+distinct bootstrap (`load_seconds["oracle_capture"]`), which the segment and
+per-op paths both replay. `host_rng=True` draws the oracle's randomness from
+the key generator's numpy RNG instead (the JAX package's
+DACAPO_TPU_ORACLE_JIT=0 path), which the CPU tests hold bit for bit.
+
 `jit` selects the executor's path (vm/executor.py): "auto" (the default) or
 "segment" runs the segment plan, as CUDA graphs that `load` captures on the
 card (`load_seconds["capture"]`) and eagerly on the CPU; True does the same
@@ -49,14 +56,16 @@ class HEVM:
 
     device: "cuda" (the default) or "cpu". Keysets live in
     ~/.hevm/torch/<profile> unless keyset_dir is given; the directory format
-    is shared with the JAX package. jit: "auto", "segment", True or False
-    (module docstring)."""
+    is shared with the JAX package. jit: "auto", "segment", True or False;
+    host_rng: the oracle's randomness from the host (module docstring)."""
 
-    def __init__(self, profile="tpu_n15", keyset_dir=None, device=None, jit="auto"):
+    def __init__(self, profile="tpu_n15", keyset_dir=None, device=None, jit="auto",
+                 host_rng=False):
         if not (jit in ("auto", "segment") or isinstance(jit, bool)):
             raise ValueError(f"jit must be 'auto', 'segment', True or False, not {jit!r}")
         self.profile = profile
         self.jit = jit
+        self.host_rng = host_rng
         self.scheme = Scheme(profile, device=device)
         self.device = self.scheme.device
         self.keyset_dir = keyset_dir or os.path.expanduser(
@@ -110,7 +119,8 @@ class HEVM:
 
     def load(self, cst_path, hevm_path):
         """Constants + bytecode -> executor + pre-encoded plaintexts, and on
-        the card the segment graphs. The seconds of each part are kept in
+        the card the native bootstraps' warm-up, the oracle graphs and the
+        segment graphs. The seconds of each part are kept in
         `load_seconds`."""
         laps = [time.perf_counter()]
 
@@ -128,7 +138,8 @@ class HEVM:
             self._native_bootstrapper()
         lap()
         # the executor generates the program's missing galois keys
-        self.executor = HEVMExecutor(self.scheme, self.prog, constants)
+        self.executor = HEVMExecutor(self.scheme, self.prog, constants,
+                                     host_rng=self.host_rng)
         lap()
         self.executor.preprocess()
         lap()
@@ -136,6 +147,9 @@ class HEVM:
         if self.device.type == "cuda" and self.executor.warm_bootstraps():
             lap()
             parts.append("bootstrap_warmup")
+        if self.device.type == "cuda" and self.executor.capture_oracle():
+            lap()
+            parts.append("oracle_capture")
         # persist newly generated keys (existing files are kept)
         keymod.save_keyset(self.scheme.keys, self.keyset_dir, skip_existing=True)
         lap()

@@ -7,10 +7,11 @@ Port of dacapo_tpu/vm/executor.py, two of its paths:
   SEGMENT_MAX_OPS ops. On the card each window of at least SEGMENT_MIN_OPS
   ops is one CUDA graph, captured at load (`precompile_segments`) and
   replayed on every request: PyTorch's counterpart of the JAX package's
-  per-window `jax.jit`. Bootstrap windows (the oracle draws from the host
-  RNG; the native bootstrap is not captured) and tiny windows run eagerly
-  between replays. On the CPU the same plan runs every window eagerly; no
-  graphs exist there.
+  per-window `jax.jit`. A bootstrap window runs between replays: the
+  device oracle replays its own graph, one per cache key, captured at load
+  (`capture_oracle`, crypto/bootstrap.py); the host-RNG oracle and the
+  native bootstrap run eagerly, as do tiny windows. On the CPU the same plan
+  runs every window eagerly; no graphs exist there.
 * per-op dispatch (`jit=False`): one Evaluator call per (fused)
   instruction, the counterpart of the reference C++ VM dispatch loop
   (lib/Runtime/SEAL_HEVM.cpp:336-401).
@@ -46,7 +47,7 @@ import time
 import numpy as np
 import torch
 
-from ..crypto.bootstrap import Bootstrapper
+from ..crypto.bootstrap import Bootstrapper, EmulatedBootstrapper
 from ..crypto.bootstrap_native import NativeBootstrapper
 from ..crypto.params import to_dev
 from ..crypto.scheme import Ciphertext
@@ -66,8 +67,10 @@ class HEVMExecutor:
     SEGMENT_MAX_OPS = 96         # split long windows
     SEGMENT_MIN_OPS = 4          # below this, eager dispatch is cheaper
 
-    def __init__(self, scheme, program: HEVMProgram, constants):
-        """scheme: crypto.Scheme with keys; constants: list of f64 arrays (.cst)."""
+    def __init__(self, scheme, program: HEVMProgram, constants, host_rng=False):
+        """scheme: crypto.Scheme with keys; constants: list of f64 arrays (.cst);
+        host_rng: the oracle draws its randomness from the key generator's
+        numpy RNG (crypto/bootstrap.py) instead of on the device."""
         self.s = scheme
         self.ev = scheme.ev
         self.rr = scheme.ctx.config.rescale_rows   # RNS rows per hevm level
@@ -89,7 +92,7 @@ class HEVMExecutor:
         self.replays = 0        # graph replays, over all requests
         # the scheme's native bootstrapper once enable_native_bootstrap ran,
         # else the oracle
-        self.bootstrapper = Bootstrapper(scheme) if any(
+        self.bootstrapper = Bootstrapper(scheme, host_rng=host_rng) if any(
             op.opcode == OP_BOOTSTRAP for op in program.ops) else None
         # device bytes of the keys a request reads: the program's rotation
         # keys and, with native bootstraps, their rotation keys and the
@@ -118,27 +121,48 @@ class HEVMExecutor:
     def _prepare_keys(self):
         self.s.ensure_galois([o for o in self.prog.rotation_offsets() if o != 0])
 
+    def _boot_signatures(self):
+        """The distinct (input rows, scale, target level) of the program's
+        bootstraps, in program order, by the metadata walk from the
+        compiled arguments."""
+        meta = dict(enumerate(self._arg_meta()))
+        seen = {}
+        for op in self.ops:
+            if op.opcode == OP_BOOTSTRAP:
+                seen.setdefault(meta[op.lhs] + (op.rhs,), None)
+            self._meta_step(op, meta)
+        return list(seen)
+
     def warm_bootstraps(self):
-        """Run each distinct native bootstrap of the program (input level,
-        scale and target, by the metadata walk from the compiled arguments)
-        once over a zero ciphertext: its galois keys, conjugation key and
-        plaintext diagonals are made now. HEVM.load does this on the card,
-        after preprocess; the CPU keeps the JAX package's lazy order.
+        """Run each distinct native bootstrap of the program once over a
+        zero ciphertext: its galois keys, conjugation key and plaintext
+        diagonals are made now. HEVM.load does this on the card, after
+        preprocess; the CPU keeps the JAX package's lazy order.
         Returns the number run."""
         if not isinstance(self.bootstrapper, NativeBootstrapper):
             return 0
-        meta = dict(enumerate(self._arg_meta()))
-        seen = set()
-        for op in self.ops:
-            if op.opcode == OP_BOOTSTRAP:
-                nl, sc = meta[op.lhs]
-                if (nl, sc, op.rhs) not in seen:
-                    seen.add((nl, sc, op.rhs))
-                    zero = torch.zeros((2, nl, self.s.ctx.n), dtype=torch.int32,
-                                       device=self.s.device)
-                    self.bootstrapper.bootstrap(zero, nl, sc, op.rhs)
-            self._meta_step(op, meta)
-        return len(seen)
+        sigs = self._boot_signatures()
+        for nl, sc, target in sigs:
+            zero = torch.zeros((2, nl, self.s.ctx.n), dtype=torch.int32,
+                               device=self.s.device)
+            self.bootstrapper.bootstrap(zero, nl, sc, target)
+        return len(sigs)
+
+    def capture_oracle(self):
+        """Capture the device oracle's CUDA graph of each distinct bootstrap
+        of the program (one per cache key, crypto/bootstrap.py), as the
+        reference jits its oracle once per key. HEVM.load does this on the
+        card; a bootstrap captures its key's graph at first use otherwise.
+        Returns the number of graphs the oracle holds: 0 on the CPU, with
+        native bootstraps and on the host-RNG path."""
+        bs = self.bootstrapper
+        if (self.s.device.type != "cuda" or not isinstance(bs, EmulatedBootstrapper)
+                or bs.host_rng):
+            return 0
+        for nl, sc, target in self._boot_signatures():
+            if nl >= 2:
+                bs.capture(nl, sc, target)
+        return len(bs._graphs)
 
     # ------------------------------------------------------------ preprocess
     def preprocess(self):
@@ -671,7 +695,8 @@ class HEVMExecutor:
         return dict(graph=graph, ins=ins, outs=outs, warmup_s=t1 - t0, capture_s=t2 - t1)
 
     def _run_segmented(self, arg_cts):
-        """Replay walk: per window, the bootstrap (boot), an eager _exec_stream
+        """Replay walk: per window, the bootstrap (boot: the device oracle
+        replays its graph and returns a copy of the output), an eager _exec_stream
         (no graph: tiny windows, and every window on the CPU), or: copy each
         input that is not already the graph's own static input in, replay,
         and bind the static outputs. Returns copies of the outputs, since the

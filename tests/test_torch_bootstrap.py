@@ -1,7 +1,8 @@
 """The port's oracle bootstrap and CRT lift against the JAX package's, bit for
-bit, at test_n10 (and the composite test_n11c) on the CPU. The JAX side runs its host-RNG oracle
-(DACAPO_TPU_ORACLE_JIT=0); both schemes share a seed and make the same calls
-in the same order, so their RNGs stay in step."""
+bit, at test_n10 (and the composite test_n11c) on the CPU. Both sides run
+their host-RNG oracle (host_rng=True here, DACAPO_TPU_ORACLE_JIT=0 there);
+both schemes share a seed and make the same calls in the same order, so their
+RNGs stay in step."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -129,7 +130,7 @@ def test_bootstrap_bit_equal(host_oracle, profile, nl, up_bits, n_drop, target):
     v = np.random.default_rng(7).uniform(-0.5, 0.5, port.ctx.config.n_slots)
     cr, cp = _encrypt_both(ref, port, v, nl, up_bits)
 
-    ob = bs.Bootstrapper(port)
+    ob = bs.Bootstrapper(port, host_rng=True)
     assert ob._plan(nl, cp.scale, target)[0] == n_drop
     if n_drop:
         _, nl_c, _, K = bs._cool_input(port, cp.data, nl, cp.scale, bs._lift_limit(port.ctx))

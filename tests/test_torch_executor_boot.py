@@ -1,8 +1,8 @@
 """A bootstrapped `dacapo` program through both executors on the CPU: the deep
 circuit of tests/test_dacapo.py, traced and compiled by the JAX package
 (dacapo, waterline 25, test_n10), run by the JAX executor (per-op path,
-host-RNG oracle) and by the port's, on keysets made with the same seed. The
-output ciphertexts are bit-equal."""
+host-RNG oracle) and by the port's (host_rng=True), on keysets made with the
+same seed. The output ciphertexts are bit-equal."""
 
 import numpy as np
 import pytest
@@ -85,7 +85,7 @@ def runs(tmp_path_factory):
 
     port = Scheme(PROFILE, device="cpu")
     port.generate_keys()
-    pex = HEVMExecutor(port, HEVMProgram.load(path), payloads)
+    pex = HEVMExecutor(port, HEVMProgram.load(path), payloads, host_rng=True)
     pex.preprocess()
     port_out = pex.run([x])
     port_cts = [c.numpy().view(np.uint32) for c in pex._last_outputs[0]]

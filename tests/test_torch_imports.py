@@ -1,8 +1,10 @@
-"""The port stands alone: importing every module of dacapo_tpu_torch,
-chip_smoke.py and scripts/torch_ntt_ab.py loads no JAX, nothing of
+"""The port stands alone: importing every module of dacapo_tpu_torch (the
+planner and the compile harness among them), chip_smoke.py and
+scripts/torch_ntt_ab.py loads no JAX, nothing of
 dacapo_tpu and nothing of examples, and its entry points refuse to run on a
 card that is not there."""
 
+import json
 import os
 import subprocess
 import sys
@@ -12,7 +14,7 @@ import pytest
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 _PROBE = r"""
-import importlib, importlib.util, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 import dacapo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dacapo_tpu_torch.__path__, "dacapo_tpu_torch.")]
 for n in names:
@@ -23,8 +25,14 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "dacapo_tpu", "examples")
              or m.startswith(("jax.", "jaxlib", "dacapo_tpu.", "examples.")))
-print(len(names), bad)
+print(json.dumps([names, bad]))
 """
+
+# the planner and the trace/compile harness, which must stand alone too
+PLANNER = ["dacapo_tpu_torch.passes." + m for m in
+           ("smu", "scale", "hoist", "estimator", "elasm", "dacapo", "pipeline")] + [
+    "dacapo_tpu_torch.vm.lower", "dacapo_tpu_torch.vm.simulate",
+    "dacapo_tpu_torch.runtime.harness", "dacapo_tpu_torch.models.deep"]
 
 
 def _run(code):
@@ -37,9 +45,10 @@ def _run(code):
 def test_no_jax_and_no_reference_package():
     proc = _run(_PROBE)
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 28
-    assert bad == "[]", bad
+    names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) >= 48
+    assert set(PLANNER) <= set(names), set(PLANNER) - set(names)
+    assert bad == [], bad
 
 
 def test_hevm_default_device_raises_without_cuda():

@@ -5,7 +5,8 @@ tests/test_torch_mlp_e2e.py and tests/test_torch_executor_boot.py. The
 window plan and the metadata walk equal the JAX executor's; the segment path
 (every window eager here: graphs exist only on the card) gives output
 ciphertexts bit-equal to the JAX per-op path. The JAX oracle runs on its
-host-RNG path (DACAPO_TPU_ORACLE_JIT=0), which the port's oracle matches."""
+host-RNG path (DACAPO_TPU_ORACLE_JIT=0), which the port's oracle matches
+with host_rng=True."""
 
 import dataclasses
 import io
@@ -59,7 +60,7 @@ def pair(request, tmp_path_factory):
 
     s = Scheme(profile, device="cpu")
     s.generate_keys()
-    port = HEVMExecutor(s, HEVMProgram.load(path), payloads)
+    port = HEVMExecutor(s, HEVMProgram.load(path), payloads, host_rng=True)
     port.preprocess()
     nl = (port.prog.arg_level[0] + 1) * port.rr
     scale = float(2.0 ** port.prog.arg_scale[0])
