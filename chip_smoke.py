@@ -7,9 +7,11 @@
 2. builds the hand-written CUDA NTT kernel (csrc/ntt.cu) from the checkout;
 3. holds both kernel modes and the round trip against the plain PyTorch
    NTT on the card, bit for bit, at the shapes of the MLP path at tpu_n15
-   (N=2^15), at N=2^11, at test_n8 (N=2^8) and at the rescale / ModUp
-   shapes of tpu_n16 (N=2^16), and times them (device time by CUDA events,
-   L2 flushed before each run, median of 25);
+   (N=2^15), at N=2^11, at test_n8 (N=2^8), at the rescale / ModUp
+   shapes of tpu_n16 (N=2^16), and at every batch size the basic phase's
+   server requests give the kernel at tpu_n14 (N=2^14) and tpu_n15
+   (BASIC_BATCHES), and times them (device time by CUDA events, L2 flushed
+   before each run, median of 25; at tpu_n14 B=8 and 58 only);
 4. compiles, on the host, with the port's own tracer and planner
    (runtime/harness.py): the MLP (pars/40, tpu_n15) and the deep DaCapo
    circuit (dacapo/40, tpu_n15b, depth 20); each .hevm and .cst must equal
@@ -68,7 +70,21 @@
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
    and nl=2 to level 14 (RMS <= 1e-5), timed three times, one bootstrap
    profiled (idle share, kernels, NTT calls of each mode on the device);
-10. prints the kernel table as one JSON line (launches: the profiled
+10. the basic phase: the five non-MLP rows of the basic list
+    (SobelFilter, HarrisCornerDetection, LinearRegression, Multivariate on
+    tpu_n14, PolynomialRegression on tpu_n15, pars/40, the inputs of
+    dacapo_tpu_torch/examples/tests/<Name>.py), each compiled by the port
+    (.hevm and .cst SHA-256 equal to artifacts/basic_pars40/expected.json,
+    the JAX package's), its galois keys made by a full HEVM on a fresh
+    keyset, its inputs encrypted and shipped by a client HEVM, served by a
+    server HEVM that holds no secret key (three timed requests, one
+    profiled: NTT calls on the device), its results shipped back and
+    decrypted by the client (RMS against the numpy golden <= 2e-5), and the
+    full HEVM's outputs on the same blobs bit-equal to the server's;
+11. the profile phase: runtime/profiler.py's tpu_n14 latency table (CUDA
+    events) into OUT_DIR, read back by ir/config.load_profile, every
+    row positive and nondecreasing;
+12. prints the kernel table as one JSON line (launches: the profiled
     ResNet request's, counted on the device; every path's under
     launches_by_path), then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
@@ -96,6 +112,7 @@ RESNET_CKPT = os.path.join(REPO, "examples", "data", "resnet20.silu.model")
 RESNET_TRACE = os.path.join(REPO, "traced", "resnet_torch")     # gitignored
 NATIVE_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "deep_dacapo40_tpu_n15b")
 TEST_BOOT_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "native_test_boot")
+BASIC_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "basic_pars40")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # H100 SXM 32-bit integer instructions a second: 64 INT32 lanes per SM (half
@@ -106,6 +123,7 @@ RMS_BAR_N16 = 1e-3
 RMS_BAR_RESNET = 9.5152e-4     # the reference's published ResNet-20 RMS
 RMS_BAR_NATIVE_BOOT = 1e-5     # the standalone tpu_n15b bootstrap (JAX on the TPU: 3.087e-6)
 RMS_BAR_NATIVE_DEEP = 1e-4     # the deep DaCapo program on tpu_n15b
+RMS_BAR_BASIC = 2e-5           # the basic rows (JAX on the TPU: 1.05e-7 to 6.49e-6)
 N_TIMED = 25
 
 
@@ -134,13 +152,14 @@ def card_line():
 def time_cuda(fn, torch, flush):
     """Median device milliseconds of fn() over N_TIMED runs, each timed with
     CUDA events after a write of 64 MB has flushed the 50 MB L2. A spin of
-    ~20 ms queued first keeps the card busy while the host enqueues the run,
-    so the time excludes host launch overhead."""
+    ~4 ms queued first keeps the card busy while the host enqueues the run
+    (well under 1 ms for every function timed here), so the time excludes
+    host launch overhead."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(N_TIMED):
-        torch.cuda._sleep(40_000_000)
+        torch.cuda._sleep(8_000_000)
         flush.add_(1)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -179,8 +198,23 @@ def make_planes(torch, tab, b, n, gen):
     return x, rows, q
 
 
+# NTT batch sizes of the basic phase's server requests, per profile: every
+# (N, B) that Evaluator._ntt took in one request of each row, recorded on a
+# CPU run of the same client/server flow (tpu_n14: SobelFilter,
+# HarrisCornerDetection, LinearRegression, Multivariate; tpu_n15:
+# PolynomialRegression). These are checked for equality only; tpu_n14 is
+# also timed at BASIC_TIMED_N14 (B=58, its largest: ModUp at the top level;
+# B=8, the commonest)
+BASIC_BATCHES = {
+    "tpu_n14": (2, 6, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26, 28, 32, 36, 58),
+    "tpu_n15": (2, 6, 7, 8, 10, 12, 14, 16, 18, 20, 22, 24, 26, 28, 30, 32, 34, 36,
+                53, 57),
+}
+BASIC_TIMED_N14 = (8, 58)
+
+
 def kernel_checks(torch, params, ntt_mod, nk):
-    """Both modes against the plain NTT at the MLP path's shapes."""
+    """Both modes against the plain NTT at the shapes of every path."""
     results = {"fwd": {}, "inv": {}}
     max_err = {"fwd": 0, "inv": 0}
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
@@ -190,13 +224,18 @@ def kernel_checks(torch, params, ntt_mod, nk):
     # 84 (the three noise polynomials over 28 rows); tpu_n15b: ModDown /
     # mod_raise_pair (2 x 60 rows) and ModUp (4 digits x 60 targets) at
     # nl = 60, the native bootstrap's shapes
-    for profile, batches in (("tpu_n15", (2, 3, 14, 28, 56, 84, 112, 2240)),
-                             ("test_n11", (2, 37)),
-                             ("test_n8", (2, 9)), ("tpu_n16", (2, 42, 126)),
-                             ("tpu_n15b", (120, 240))):
+    timed_n15 = (2, 3, 14, 28, 56, 84, 112, 2240)
+    checks = (("tpu_n15", timed_n15, timed_n15 + BASIC_BATCHES["tpu_n15"]),
+              ("tpu_n14", BASIC_TIMED_N14, BASIC_BATCHES["tpu_n14"]),
+              ("test_n11", (2, 37), (2, 37)),
+              ("test_n8", (2, 9), (2, 9)), ("tpu_n16", (2, 42, 126), (2, 42, 126)),
+              ("tpu_n15b", (120, 240), (120, 240)))
+    checked = {}
+    for profile, timed, batches in checks:
         ctx = params.CKKSContext(params.PROFILES[profile], "cuda")
         tab = ctx.dev
-        for b in batches:
+        checked[profile] = sorted(set(batches))
+        for b in checked[profile]:
             x, rows, q = make_planes(torch, tab, b, ctx.n, gen)
             idx = rows.long()
             plain = {
@@ -217,6 +256,9 @@ def kernel_checks(torch, params, ntt_mod, nk):
             back = nk.ntt_cuda(nk.ntt_cuda(x, rows, tab, False), rows, tab, True)
             if not torch.equal(back, x):
                 raise AssertionError(f"roundtrip failed at {profile} B={b}")
+            if b not in timed:
+                del x, q
+                continue
             n_primes = len(set(rows.tolist()))
             for mode in ("fwd", "inv"):
                 k_ms = time_cuda(kern[mode], torch, flush)
@@ -230,6 +272,8 @@ def kernel_checks(torch, params, ntt_mod, nk):
             del x, q
         del ctx, tab
         torch.cuda.empty_cache()
+    log("[ntt] equal to the plain NTT, both modes and the round trip, at "
+        + "; ".join(f"{p} B={','.join(map(str, bs))}" for p, bs in checked.items()))
     log("[ntt] library: no single PyTorch call computes a modular NTT "
         "(torch.fft is floating point): library_ms is null")
     return results, max_err
@@ -964,6 +1008,181 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     return out, req_launches, boot_launches
 
 
+def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
+    """The basic phase: the five non-MLP rows of the basic list, each served
+    from a client to a server that holds no secret key and back. Per row:
+    the port traces and compiles it (pars/40; the .hevm and .cst must equal
+    the JAX package's digests in artifacts/basic_pars40/expected.json); a
+    full HEVM on a fresh keyset directory loads it (making and persisting
+    its galois keys); a client HEVM encrypts the inputs of
+    examples/tests/<Name>.py and ships them; a server HEVM on the same
+    directory (no s_ntt) loads the program (capturing its graphs), receives
+    them and serves three timed requests and a profiled one (NTT calls
+    counted on the device); the client decrypts the shipped results (RMS
+    against the numpy golden <= RMS_BAR_BASIC); the full HEVM runs the same
+    blobs and its result blobs must equal the server's byte for byte.
+    Returns (results, NTT calls of the profiled server requests, summed)."""
+    import importlib
+    from dacapo_tpu_torch.runtime.harness import compile_traced
+    with open(os.path.join(BASIC_ART, "expected.json")) as f:
+        expected = json.load(f)["rows"]
+    out = {}
+    launches = {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
+    plain_calls = {k: 0 for k in ntt_mod.CALLS}
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for name, row in expected.items():
+        bench = importlib.import_module(f"dacapo_tpu_torch.examples.benchmarks.{name}")
+        test = importlib.import_module(f"dacapo_tpu_torch.examples.tests.{name}")
+        profile = row["profile"]
+        if test.PROFILE != profile:
+            raise AssertionError(f"{name} runs on {test.PROFILE}, expected.json says {profile}")
+        r = out[name] = dict(profile=profile, pipeline=row["pipeline"],
+                             waterline=row["waterline"], nt=row["nt"])
+        traced = os.path.join(work, "traced")
+        t0 = time.perf_counter()
+        bench.trace(dirs=traced, nt=row["nt"])
+        t1 = time.perf_counter()
+        hevm = compile_traced(name, row["pipeline"], row["waterline"], profile, traced,
+                              os.path.join(work, "optimized"))
+        cst = os.path.join(traced, f"_hecate_{name}.cst")
+        r.update(trace_s=t1 - t0, compile_s=time.perf_counter() - t1,
+                 hevm_sha256=sha256_file(hevm), cst_sha256=sha256_file(cst))
+        if r["hevm_sha256"] != row["hevm_sha256"] or r["cst_sha256"] != row["cst_sha256"]:
+            raise AssertionError(f"the port's {name} program differs from the JAX "
+                                 f"package's: {r}")
+        inputs, golden, post = test.case(nt=row["nt"])
+        keydir = tempfile.mkdtemp(prefix=f"keys_{name}_", dir=work)
+        torch.cuda.reset_peak_memory_stats()
+
+        t0 = sync()
+        full = HEVM(profile, keyset_dir=keydir)
+        t1 = sync()
+        full.load(cst, hevm)
+        t2 = sync()
+        r.update(keygen_s=t1 - t0, full_load_s=t2 - t1, full_load_parts_s=full.load_seconds)
+
+        client = HEVM(profile, keyset_dir=keydir, mode="client")
+        client.loadClient(hevm)
+        t0 = sync()
+        for i, x in enumerate(inputs):
+            client.setInput(i, x)
+        blobs = [client.getCtxt(i) for i in range(len(inputs))]
+        r["client_encrypt_s"] = sync() - t0
+        r["blob_bytes"] = [len(b) for b in blobs]
+
+        t0 = sync()
+        server = HEVM(profile, keyset_dir=keydir, mode="server")
+        t1 = sync()
+        if server.scheme.keys.s_ntt is not None:
+            raise AssertionError("the server's keyset holds the secret key")
+        server.load(cst, hevm)
+        t2 = sync()
+        r.update(server_keyset_load_s=t1 - t0, server_load_s=t2 - t1,
+                 server_load_parts_s=server.load_seconds,
+                 graphs=server.executor.capture_stats, galois_keys=len(server.scheme.keys.galois))
+        if "capture" not in server.load_seconds:
+            raise AssertionError("the server's load captured no graphs")
+        for i, b in enumerate(blobs):
+            server.setCtxt(i, b)
+        times = []
+        for _ in range(3):
+            reset_counts(nk, ntt_mod)
+            t0 = sync()
+            if server.run() is not None:
+                raise AssertionError("a server returned decrypted outputs")
+            times.append(sync() - t0)
+            plain_calls = {k: v + ntt_mod.CALLS[k] for k, v in plain_calls.items()}
+        r["request_s"] = times
+        r["request_median_s"] = statistics.median(times)
+        prof = r["profiled_request"] = profile_request(
+            torch, server.run, f"basic {name}", server.executor, nk, ntt_mod, cpu=False)
+        for k in launches:
+            launches[k] += prof["ntt_launches"][k]
+        plain_calls = {k: v + prof["plain_ntt_calls"][k] for k, v in plain_calls.items()}
+        if min(prof["ntt_launches"].values()) <= 0:
+            raise AssertionError(f"{name}: an NTT mode never ran in the server's request")
+        res_blobs = [server.getOutputCtxt(j) for j in range(server.prog.res_length)]
+
+        t0 = sync()
+        dec = np.stack([client.decrypt_result(b) for b in res_blobs])
+        r["client_decrypt_s"] = sync() - t0
+        got = np.asarray(post(dec), np.float64).ravel()
+        want = np.asarray(golden, np.float64).ravel()
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: bad output of shape {got.shape}")
+        r["rms"] = float(np.sqrt(np.mean((got - want) ** 2)))
+
+        for i, b in enumerate(blobs):
+            full.setCtxt(i, b)
+        full.run()
+        r["full_equals_server"] = [full.getOutputCtxt(j) for j in range(
+            full.prog.res_length)] == res_blobs
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[basic] {name} ({profile}, {row['pipeline']}/{row['waterline']}): .hevm "
+            f"{r['hevm_sha256'][:16]}... equal to the JAX package's; keygen "
+            f"{r['keygen_s']:.3f} s, full load {r['full_load_s']:.3f} s, client encrypt "
+            f"{r['client_encrypt_s']:.4f} s ({sum(r['blob_bytes'])} bytes shipped), server "
+            f"load {r['server_load_s']:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in server.load_seconds.items())
+            + f"), {r['galois_keys']} galois keys, no secret key; requests "
+            + ", ".join(f"{t:.4f}" for t in times)
+            + f" s (median {r['request_median_s']:.4f}), idle share "
+            f"{prof['idle_share']}, NTT calls on the device {prof['ntt_launches']}; client "
+            f"decrypt {r['client_decrypt_s']:.4f} s, rms {r['rms']:.3e} (bar {RMS_BAR_BASIC}); "
+            f"full VM on the same blobs bit-equal: {r['full_equals_server']}; peak "
+            f"{r['peak_bytes']} bytes")
+        if not r["rms"] <= RMS_BAR_BASIC:
+            raise AssertionError(f"{name} rms {r['rms']} > {RMS_BAR_BASIC}")
+        if not r["full_equals_server"]:
+            raise AssertionError(f"{name}: the server's outputs differ from the full VM's")
+        del full, client, server
+        gc.collect()
+        torch.cuda.empty_cache()
+    if any(plain_calls.values()):
+        raise AssertionError(f"the plain NTT ran on the basic path: {plain_calls}")
+    log(f"[basic] NTT calls of the five profiled server requests, on the device: {launches}")
+    return out, launches
+
+
+def profile_ops(torch, nk, ntt_mod):
+    """The profile phase: runtime/profiler.py measures tpu_n14's per-op,
+    per-level latency table on the card (CUDA events, median of 10) into
+    OUT_DIR; ir/config.load_profile reads it back; every row must be
+    positive and nondecreasing. Returns (results, NTT launches)."""
+    from dacapo_tpu_torch.ir.config import load_profile
+    from dacapo_tpu_torch.runtime.profiler import card_name, profile_backend
+    reset_counts(nk, ntt_mod)
+    t0 = time.perf_counter()
+    path = profile_backend("tpu_n14", out_path=os.path.join(
+        OUT_DIR, f"profiled_{card_name(torch.device('cuda'))}_tpu_n14.json"), iters=10)
+    seconds = time.perf_counter() - t0
+    launches, plain = dict(nk.LAUNCHES), dict(ntt_mod.CALLS)
+    cfg = load_profile(path)
+    with open(path) as f:
+        table = json.load(f)["latencyTable"]
+    bad = {k: row for k, row in table.items()
+           if not (all(v > 0 for v in row) and row == sorted(row))}
+    top = cfg.level_upper
+    rows = {k: cfg.latency_of(op, single, top) for k, op, single in (
+        ("mul_double", "mul", False), ("rotate_single", "rotate", True),
+        ("rescale_single", "rescale", True))}
+    log(f"[profile] tpu_n14 table in {seconds:.2f} s -> {path} (runtime {cfg.runtime!r}); at "
+        f"the top level {top}: " + ", ".join(f"{k} {v} us" for k, v in rows.items())
+        + f"; NTT launches {launches}, plain NTT calls {plain}")
+    for k in ("earth.mul_double", "earth.rotate_single", "earth.rescale_single"):
+        log(f"[profile]   {k}: {table[k]}")
+    if bad:
+        raise AssertionError(f"profile rows not positive and nondecreasing: {bad}")
+    if min(launches.values()) <= 0 or any(plain.values()):
+        raise AssertionError(f"the profile phase: NTT {launches}, plain {plain}")
+    return dict(seconds=seconds, path=os.path.relpath(path, REPO), top_level=top,
+                top_level_us=rows, table=table, launches=launches), launches
+
+
 def main():
     import numpy as np
     import torch
@@ -974,6 +1193,7 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    os.makedirs(OUT_DIR, exist_ok=True)       # the profile phase writes its table there
     from dacapo_tpu_torch import HEVM
     from dacapo_tpu_torch.crypto import ntt as ntt_mod, params
     from dacapo_tpu_torch.crypto.bootstrap_native import BootstrapConfig
@@ -997,39 +1217,48 @@ def main():
     t0 = time.perf_counter()
     results, max_err = kernel_checks(torch, params, ntt_mod, nk)
     seconds["kernel_checks"] = time.perf_counter() - t0
-    # the programs the MLP and native phases serve, compiled by the port
-    # (removed at exit by the TemporaryDirectory's finalizer)
-    compiled_dir = tempfile.TemporaryDirectory(prefix="hevm_compiled_")
-    t0 = time.perf_counter()
-    files, compiled = compile_programs(compiled_dir.name)
-    seconds["compile"] = time.perf_counter() - t0
-    # one tpu_n15 keyset: the MLP phase generates it, the ResNet phase adds
-    # the rotation keys the MLP lacks
-    with tempfile.TemporaryDirectory(prefix="hevm_keys_") as keydir:
-        t0 = time.perf_counter()
-        phases, launches, rms_all = serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params,
-                                              keydir, files)
-        seconds["mlp"] = time.perf_counter() - t0
+    report = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
+                  ntt={m: {f"{p}/B={b}": v for (p, b), v in r.items()}
+                       for m, r in results.items()})
+    by_path = {}     # path -> NTT launches of each mode (kernel name -> count)
+
+    def timed(name, fn, *args):
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rn, rn_launches = serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir)
-        seconds["resnet"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    n16 = scheme_n16(np, torch, Scheme, nk, ntt_mod, params)
-    seconds["tpu_n16"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    native = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
-    with tempfile.TemporaryDirectory(prefix="hevm_keys_n15b_") as keydir:
-        native["tpu_n15b"], nat_launches, boot_launches = serve_native(
-            np, torch, HEVM, nk, ntt_mod, params, keydir, files)
-    seconds["native"] = time.perf_counter() - t0
-    gc.collect()
-    torch.cuda.empty_cache()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # the programs the MLP and native phases serve, compiled by the port, and
+    # the basic phase's work (removed at exit by the finalizer)
+    work = tempfile.TemporaryDirectory(prefix="hevm_smoke_")
+    files, report["compile"] = timed("compile", compile_programs,
+                                     os.path.join(work.name, "compiled"))
+    # one tpu_n15 keyset: the MLP phase generates it, the ResNet phase adds
+    # the rotation keys the MLP lacks
+    with tempfile.TemporaryDirectory(prefix="hevm_keys_") as keydir:
+        report["mlp"], by_path["mlp_tpu_n15"], report["rms"] = timed(
+            "mlp", serve_mlp, np, torch, HEVM, mlp, nk, ntt_mod, params, keydir, files)
+        report["resnet"], by_path["resnet_tpu_n15_request"] = timed(
+            "resnet", serve_resnet, np, torch, HEVM, nk, ntt_mod, keydir)
+    report["scheme_tpu_n16"] = timed("tpu_n16", scheme_n16, np, torch, Scheme, nk, ntt_mod,
+                                     params)
+    by_path["scheme_tpu_n16"] = report["scheme_tpu_n16"]["launches"]
+
+    def native():
+        out = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
+        with tempfile.TemporaryDirectory(prefix="hevm_keys_n15b_") as kd:
+            out["tpu_n15b"], by_path["native_deep_tpu_n15b_request"], \
+                by_path["native_bootstrap_tpu_n15b"] = serve_native(
+                    np, torch, HEVM, nk, ntt_mod, params, kd, files)
+        return out
+
+    report["native"] = timed("native", native)
+    report["basic"], by_path["basic_server_requests"] = timed(
+        "basic", serve_basic, np, torch, HEVM, nk, ntt_mod, os.path.join(work.name, "basic"))
+    report["profile"], by_path["profile_tpu_n14"] = timed(
+        "profile", profile_ops, torch, nk, ntt_mod)
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     kernels = []
@@ -1037,30 +1266,25 @@ def main():
         r = results[mode][("tpu_n15", 112)]
         n15b = {f"B={b}": results[mode][("tpu_n15b", b)] for b in (120, 240)}
         oracle = {f"B={b}": results[mode][("tpu_n15", b)] for b in (3, 28, 84)}
+        n14 = {f"B={b}": results[mode][("tpu_n14", b)] for b in BASIC_TIMED_N14}
         kernels.append(dict(
             name=name, route="cuda", source="dacapo_tpu_torch/csrc/ntt.cu",
             replaces=f"dacapo_tpu/crypto/pallas/ntt_kernel.py:{line}",
-            launches=rn_launches[name], max_abs_err=max_err[mode], ms=r["ms"],
+            launches=by_path["resnet_tpu_n15_request"][name],
+            max_abs_err=max_err[mode], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape="B=112, N=2^15 (ModUp batch at tpu_n15)",
             launches_counted=("NTT calls the device ran in one profiled request of each "
                               "path (ntt_pass kernels in the trace, graph replays "
-                              "included); tpu_n16 (no graphs): the wrapper's count"),
-            launches_by_path={"resnet_tpu_n15_request": rn_launches[name],
-                              "mlp_tpu_n15": launches[name],
-                              "scheme_tpu_n16": n16["launches"][name],
-                              "native_deep_tpu_n15b_request": nat_launches[name],
-                              "native_bootstrap_tpu_n15b": boot_launches[name]},
-            native_shapes_tpu_n15b=n15b, oracle_shapes_tpu_n15=oracle))
-    os.makedirs(OUT_DIR, exist_ok=True)
+                              "included; the basic path: the five rows' server requests "
+                              "summed); tpu_n16 and the profile phase (no graphs): the "
+                              "wrapper's count"),
+            launches_by_path={k: v[name] for k, v in by_path.items()},
+            native_shapes_tpu_n15b=n15b, oracle_shapes_tpu_n15=oracle,
+            basic_shapes_tpu_n14=n14))
+    report.update(phase_seconds=seconds, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                       ntt={m: {f"{p}/B={b}": v for (p, b), v in r.items()}
-                            for m, r in results.items()},
-                       compile=compiled, mlp=phases, rms=rms_all, resnet=rn,
-                       scheme_tpu_n16=n16,
-                       native=native, phase_seconds=seconds, kernels=kernels),
-                  f, indent=1)
+        json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

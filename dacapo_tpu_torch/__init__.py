@@ -7,6 +7,6 @@ the dacapo_tpu package.
 """
 
 from .crypto.scheme import Scheme
-from .runtime.runner import HEVM
+from .runtime.runner import HEVM, current_profile, setLibnHW
 
-__all__ = ["HEVM", "Scheme"]
+__all__ = ["HEVM", "Scheme", "current_profile", "setLibnHW"]

@@ -175,8 +175,17 @@ class KeyGenerator:
         return self.extend_galois(keys, rot_steps)
 
     def extend_galois(self, keyset: KeySet, rot_steps):
-        """Generate any missing galois keys for the given rotation steps."""
+        """Generate any missing galois keys for the given rotation steps.
+        Raises RuntimeError on a keyset without the secret key (a server's)
+        that lacks one of them."""
         half = self.ctx.n // 2
+        missing = sorted({st % half for st in rot_steps
+                          if st % half and st % half not in keyset.galois})
+        if missing and keyset.s_ntt is None:
+            raise RuntimeError(
+                f"the keyset has no secret key and lacks the galois keys of rotation "
+                f"steps {missing[:8]}{' ...' if len(missing) > 8 else ''}: generate "
+                "the full keyset for this program first (a full HEVM's load)")
         for st in rot_steps:
             st = st % half
             if st not in keyset.galois and st != 0:
@@ -218,10 +227,13 @@ class KeyGenerator:
         return torch.stack(digits)
 
 
-def save_keyset(keyset: KeySet, dirpath: str, skip_existing=False):
+def save_keyset(keyset: KeySet, dirpath: str, parts=("secret", "public", "eval"),
+                skip_existing=False):
     """Persist a keyset directory in the reference's format (uint32 .npy
-    files; galois/<steps>.npy). skip_existing: only write absent files."""
-    os.makedirs(os.path.join(dirpath, "galois"), exist_ok=True)
+    files; galois/<steps>.npy). `parts` selects what is written, so a
+    deployment can ship the client half (secret, public) and the server half
+    (public, eval) apart. skip_existing: only write absent files."""
+    os.makedirs(dirpath, exist_ok=True)
 
     def _put(name, arr):
         p = os.path.join(dirpath, name)
@@ -229,14 +241,18 @@ def save_keyset(keyset: KeySet, dirpath: str, skip_existing=False):
             return
         np.save(p, arr if isinstance(arr, np.ndarray) else to_host(arr))
 
-    _put("s_ntt.npy", keyset.s_ntt)
-    _put("pk.npy", keyset.pk)
-    _put("rlk.npy", keyset.rlk)
-    _put("conj.npy", keyset.conj)
-    for st in keyset.galois.keys():
-        p = os.path.join("galois", f"{st}.npy")
-        if not (skip_existing and os.path.exists(os.path.join(dirpath, p))):
-            _put(p, keyset.galois.peek_host(st))
+    if "secret" in parts:
+        _put("s_ntt.npy", keyset.s_ntt)
+    if "public" in parts:
+        _put("pk.npy", keyset.pk)
+    if "eval" in parts:
+        _put("rlk.npy", keyset.rlk)
+        _put("conj.npy", keyset.conj)
+        os.makedirs(os.path.join(dirpath, "galois"), exist_ok=True)
+        for st in keyset.galois.keys():
+            p = os.path.join("galois", f"{st}.npy")
+            if not (skip_existing and os.path.exists(os.path.join(dirpath, p))):
+                _put(p, keyset.galois.peek_host(st))
 
 
 def keyset_from_numpy(d, device) -> KeySet:
@@ -255,18 +271,26 @@ def keyset_from_numpy(d, device) -> KeySet:
     return ks
 
 
-def load_keyset(dirpath: str, device) -> KeySet:
-    """Read a keyset directory written by either package's save_keyset."""
+def load_keyset(dirpath: str, device, mode="full") -> KeySet:
+    """Read a keyset directory written by either package's save_keyset.
+    mode: "full" (everything), "client" (secret and public key: encrypt and
+    decrypt) or "server" (public and evaluation keys, no secret: evaluate
+    only), the reference's initFullVM/initClientVM/initServerVM split."""
+    if mode not in ("full", "client", "server"):
+        raise ValueError(f"mode must be 'full', 'client' or 'server', not {mode!r}")
+    want_secret = mode in ("full", "client")
+    want_eval = mode in ("full", "server")
 
-    def _load(name):
+    def _load(name, want=True):
         p = os.path.join(dirpath, f"{name}.npy")
-        return np.load(p) if os.path.exists(p) else None
+        return np.load(p) if want and os.path.exists(p) else None
 
     gdir = os.path.join(dirpath, "galois")
     galois = {}
-    if os.path.isdir(gdir):
+    if want_eval and os.path.isdir(gdir):
         for f in os.listdir(gdir):
             galois[int(f[:-4])] = np.load(os.path.join(gdir, f))
     return keyset_from_numpy(
-        dict(s_ntt=_load("s_ntt"), pk=_load("pk"), rlk=_load("rlk"),
-             conj=_load("conj"), galois=galois), device)
+        dict(s_ntt=_load("s_ntt", want_secret), pk=_load("pk"),
+             rlk=_load("rlk", want_eval), conj=_load("conj", want_eval), galois=galois),
+        device)

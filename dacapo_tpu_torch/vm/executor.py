@@ -41,6 +41,7 @@ semantics in addcc/addcp (SEAL_HEVM.cpp:297-310).
 """
 
 import hashlib
+import math
 import sys
 import time
 
@@ -90,6 +91,7 @@ class HEVMExecutor:
         self.seg_profile = None
         self.capture_stats = None
         self.replays = 0        # graph replays, over all requests
+        self.debug = False      # per-op (nl, scale) trace (setDebug)
         # the scheme's native bootstrapper once enable_native_bootstrap ran,
         # else the oracle
         self.bootstrapper = Bootstrapper(scheme, host_rng=host_rng) if any(
@@ -117,6 +119,12 @@ class HEVMExecutor:
                   f"{int(self.KEY_BUDGET_FRAC * total) >> 20} MiB: "
                   "streaming keys from host (LRU)", file=sys.stderr)
             self.s.set_key_budget(int(self.KEY_BUDGET_FRAC * total))
+
+    def setDebug(self, flag=True):
+        """Per-op level and scale trace on stderr, like the reference VMs'
+        setDebug (SEAL_HEVM.cpp:269-334 prints op name + scale per
+        instruction). A request with debug on takes the per-op path."""
+        self.debug = bool(flag)
 
     def _prepare_keys(self):
         self.s.ensure_galois([o for o in self.prog.rotation_offsets() if o != 0])
@@ -350,6 +358,8 @@ class HEVMExecutor:
                     nl -= 1
                 ciphers[dst] = out
                 meta[dst] = (nl, sc)
+                if self.debug:
+                    self._dbg_rotmac(op, meta[dst])
                 release(op, opi)
                 continue
             if oc == OP_ROTATE:
@@ -366,6 +376,8 @@ class HEVMExecutor:
                     bank["entries"].append((op.dst, op.rhs))
                     bank_of_dst[op.dst] = bank
                 meta[op.dst] = (nl, sc)
+                if self.debug:
+                    self._dbg(op, meta[op.dst])
                 release(op, opi)
                 continue
             if op.lhs < self.num_regs:
@@ -432,9 +444,31 @@ class HEVMExecutor:
                     ciphers[op.lhs], nl, sc, op.rhs)
             else:
                 raise ValueError(f"bad opcode {oc}")
+            if self.debug:
+                self._dbg(op, meta[op.dst])
             release(op, opi)
 
         return [materialize(r) for r in out_regs]
+
+    _OPNAMES = {
+        OP_ENCODE: "encode", OP_ROTATE: "rotatec", OP_NEGATE: "negatec",
+        OP_RESCALE: "rescalec", OP_MODSWITCH: "modswitchc",
+        OP_UPSCALE: "upscalec", OP_ADDCC: "addcc", OP_ADDCP: "addcp",
+        OP_MULCC: "mulcc", OP_MULCP: "mulcp", OP_BOOTSTRAP: "bootstrapc",
+    }
+
+    def _dbg_rotmac(self, op, m):
+        nl, sc = m
+        print(f"[hevm] rot_mac    dst={op.rescale_dst if op.fold_rescale else op.dst:<5} "
+              f"src={op.src:<5} taps={len(op.steps):<4} level={nl - 1:<3} "
+              f"log2(scale)={math.log2(sc):.3f}", file=sys.stderr)
+
+    def _dbg(self, op, m):
+        nl, sc = m
+        name = self._OPNAMES.get(op.opcode, f"op{op.opcode}")
+        print(f"[hevm] {name:<10} dst={op.dst:<5} lhs={op.lhs:<5} "
+              f"rhs={op.rhs:<6} level={nl - 1:<3} "
+              f"log2(scale)={math.log2(sc):.3f}", file=sys.stderr)
 
     # --------------------------------------------- upscale multiplier args
     # Upscale multiplies by an integer K passed as a [2, num_q] (residue,
@@ -791,7 +825,10 @@ class HEVMExecutor:
         jit: "auto"/"segment" (the default) runs the segment plan, on the
         card as CUDA graphs (captured at first use unless
         precompile_segments ran), on the CPU eagerly; True does the same
-        (module docstring); False dispatches per op."""
+        (module docstring); False dispatches per op, as does every request
+        with debug on (setDebug)."""
+        if self.debug:
+            jit = False      # the trace prints per-op host metadata
         if jit is True or jit in ("auto", "segment"):
             outs = self._run_segmented(arg_cts)
         elif jit is False:

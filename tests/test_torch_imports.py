@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of dacapo_tpu_torch (the
-planner and the compile harness among them), chip_smoke.py and
+planner, the compile harness, the CLI, the profiler, the model zoo and the
+benchmark programs among them), chip_smoke.py and
 scripts/torch_ntt_ab.py loads no JAX, nothing of
 dacapo_tpu and nothing of examples, and its entry points refuse to run on a
 card that is not there."""
@@ -33,6 +34,14 @@ PLANNER = ["dacapo_tpu_torch.passes." + m for m in
            ("smu", "scale", "hoist", "estimator", "elasm", "dacapo", "pipeline")] + [
     "dacapo_tpu_torch.vm.lower", "dacapo_tpu_torch.vm.simulate",
     "dacapo_tpu_torch.runtime.harness", "dacapo_tpu_torch.models.deep"]
+# the client/server slice: CLI, profiler, basic list, zoo, benchmark programs
+SERVING = ["dacapo_tpu_torch.cli", "dacapo_tpu_torch.runtime.profiler",
+           "dacapo_tpu_torch.models.kernels", "dacapo_tpu_torch.models.zoo"] + [
+    f"dacapo_tpu_torch.examples.{kind}.{name}"
+    for kind in ("benchmarks", "tests")
+    for name in ("SobelFilter", "HarrisCornerDetection", "LinearRegression",
+                 "PolynomialRegression", "Multivariate", "MLP", "ResNet", "AlexNet",
+                 "VGG16", "SqueezeNet", "MobileNet")]
 
 
 def _run(code):
@@ -46,8 +55,8 @@ def test_no_jax_and_no_reference_package():
     proc = _run(_PROBE)
     assert proc.returncode == 0, proc.stderr
     names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert len(names) >= 48
-    assert set(PLANNER) <= set(names), set(PLANNER) - set(names)
+    assert len(names) >= 77
+    assert set(PLANNER + SERVING) <= set(names), set(PLANNER + SERVING) - set(names)
     assert bad == [], bad
 
 

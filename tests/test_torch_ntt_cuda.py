@@ -1,5 +1,5 @@
 """The hand-written CUDA NTT kernel against the plain PyTorch NTT, bit for
-bit, on the card, at N = 2^8, 2^11, 2^15 and 2^16 and B = 1, 2, 37 (rows
+bit, on the card, at N = 2^8, 2^11, 2^14, 2^15 and 2^16 and B = 1, 2, 37 (rows
 repeated and out of order). Imports no JAX, so it runs where only the port
 is installed:  python -m pytest tests/test_torch_ntt_cuda.py -m cuda
 Without a card every case skips (a CUDA kernel has no CPU mode)."""
@@ -10,8 +10,8 @@ import torch
 from dacapo_tpu_torch.crypto import ntt
 from dacapo_tpu_torch.crypto.params import CKKSContext, PROFILES
 
-PROFILE_OF_N = {1 << 8: "test_n8", 1 << 11: "test_n11", 1 << 15: "tpu_n15",
-                1 << 16: "tpu_n16"}
+PROFILE_OF_N = {1 << 8: "test_n8", 1 << 11: "test_n11", 1 << 14: "tpu_n14",
+                1 << 15: "tpu_n15", 1 << 16: "tpu_n16"}
 _CTX = {}
 
 
