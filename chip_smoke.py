@@ -51,7 +51,14 @@
    windows by kind (a synchronize after each window: the boot windows'
    seconds) and profiles one more segmented request (oracle seconds, host
    launch calls, idle share, kernels per graph launch) in which both kernel
-   modes must have run, counted on the device as in 6;
+   modes must have run, counted on the device as in 6; then the batch part
+   on the same HEVM (keys and plaintexts shared): precompile_batch(4)
+   captures the batch graphs (the oracle's, one per cache key and B, and
+   the segments'), three timed batch requests of the test images of seeds
+   100-103 (setInputBatch, runBatch), every row's RMS held to the same bar,
+   19 batched oracle graph replays and no plain NTT call in each, and one
+   profiled batch request; seconds a batch and a ciphertext beside the B=1
+   median, capture seconds and peak device memory;
 8. runs Scheme("tpu_n16", seed=5) on the card: keygen, encrypt two vectors,
    mul (relinearise), rescale, decrypt; checks the RMS against a*b, the
    output ciphertext bit-equal to the same calls with device="cpu", and that
@@ -80,14 +87,24 @@
     server HEVM that holds no secret key (three timed requests, one
     profiled: NTT calls on the device), its results shipped back and
     decrypted by the client (RMS against the numpy golden <= 2e-5), and the
-    full HEVM's outputs on the same blobs bit-equal to the server's;
-11. the profile phase: runtime/profiler.py's tpu_n14 latency table (CUDA
+    full HEVM's outputs on the same blobs bit-equal to the server's; then
+    Multivariate as a batch of 8 input sets on its full HEVM (batch graphs
+    captured, three timed batch requests and a profiled one): every row's
+    output ciphertexts byte-equal to a single request's on the same argument
+    ciphertexts, every row's RMS <= 2e-5, seconds a batch and a ciphertext
+    beside the single requests' in the same run;
+11. the NTT at every batch size the two batch paths launched (recorded by
+    wrapping the Evaluator's kernel call over each batch capture and first
+    request), bit-equal to the plain NTT in both modes, the largest timed
+    against its bound;
+12. the profile phase: runtime/profiler.py's tpu_n14 latency table (CUDA
     events) into OUT_DIR, read back by ir/config.load_profile, every
     row positive and nondecreasing;
-12. prints the kernel table as one JSON line (launches: the profiled
+13. prints the kernel table as one JSON line (launches: the profiled
     ResNet request's, counted on the device; every path's under
-    launches_by_path), then the card's name and power limit, then
-    {"ok": true, "device": {...}} as the last line.
+    launches_by_path, and per ciphertext; the batch shapes' times), then
+    the card's name and power limit, then {"ok": true, "device": {...}} as
+    the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without CUDA, or outside a checkout of the repository, it exits 2.
@@ -125,6 +142,9 @@ RMS_BAR_NATIVE_BOOT = 1e-5     # the standalone tpu_n15b bootstrap (JAX on the T
 RMS_BAR_NATIVE_DEEP = 1e-4     # the deep DaCapo program on tpu_n15b
 RMS_BAR_BASIC = 2e-5           # the basic rows (JAX on the TPU: 1.05e-7 to 6.49e-6)
 N_TIMED = 25
+RESNET_BATCH = 4               # ciphertexts a ResNet batch request carries
+BASIC_BATCH = 8                # and a Multivariate one
+BASIC_BATCH_ROW = "Multivariate"
 
 
 def log(*a):
@@ -217,8 +237,6 @@ def kernel_checks(torch, params, ntt_mod, nk):
     """Both modes against the plain NTT at the shapes of every path."""
     results = {"fwd": {}, "inv": {}}
     max_err = {"fwd": 0, "inv": 0}
-    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1234)
     # tpu_n15: the device oracle's shapes at ResNet's bootstraps are B=3 (the
     # inverse NTT of the decrypted message at its 3 base rows), 28 (m2) and
     # 84 (the three noise polynomials over 28 rows); tpu_n15b: ModDown /
@@ -232,46 +250,8 @@ def kernel_checks(torch, params, ntt_mod, nk):
               ("tpu_n15b", (120, 240), (120, 240)))
     checked = {}
     for profile, timed, batches in checks:
-        ctx = params.CKKSContext(params.PROFILES[profile], "cuda")
-        tab = ctx.dev
-        checked[profile] = sorted(set(batches))
-        for b in checked[profile]:
-            x, rows, q = make_planes(torch, tab, b, ctx.n, gen)
-            idx = rows.long()
-            plain = {
-                "fwd": lambda: ntt_mod.ntt_fwd(x, tab["tw"][idx], q),
-                "inv": lambda: ntt_mod.ntt_inv(x, tab["itw"][idx], q, tab["ninv"][idx][:, None]),
-            }
-            kern = {
-                "fwd": lambda: nk.ntt_cuda(x, rows, tab, False),
-                "inv": lambda: nk.ntt_cuda(x, rows, tab, True),
-            }
-            for mode in ("fwd", "inv"):
-                got, want = kern[mode](), plain[mode]()
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                max_err[mode] = max(max_err[mode], err)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{mode} kernel != plain at {profile} B={b}: max err {err}")
-            back = nk.ntt_cuda(nk.ntt_cuda(x, rows, tab, False), rows, tab, True)
-            if not torch.equal(back, x):
-                raise AssertionError(f"roundtrip failed at {profile} B={b}")
-            if b not in timed:
-                del x, q
-                continue
-            n_primes = len(set(rows.tolist()))
-            for mode in ("fwd", "inv"):
-                k_ms = time_cuda(kern[mode], torch, flush)
-                p_ms = time_cuda(plain[mode], torch, flush) if b <= 240 else None
-                bound, by = ntt_bound_ms(b, ctx.n, n_primes, mode == "inv")
-                results[mode][(profile, b)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                                                   bound_by=by)
-                log(f"[ntt] {mode} {profile} B={b:<5} equal=True kernel {k_ms:.4f} ms "
-                    f"plain {'-' if p_ms is None else f'{p_ms:.4f}'} ms "
-                    f"bound {bound:.4f} ms ({by})")
-            del x, q
-        del ctx, tab
-        torch.cuda.empty_cache()
+        checked[profile] = check_shapes(torch, params, ntt_mod, nk, profile, batches, timed,
+                                        results, max_err)
     log("[ntt] equal to the plain NTT, both modes and the round trip, at "
         + "; ".join(f"{p} B={','.join(map(str, bs))}" for p, bs in checked.items()))
     log("[ntt] library: no single PyTorch call computes a modular NTT "
@@ -279,10 +259,96 @@ def kernel_checks(torch, params, ntt_mod, nk):
     return results, max_err
 
 
+def check_shapes(torch, params, ntt_mod, nk, profile, batches, timed, results, max_err):
+    """Both modes and the round trip bit-equal to the plain NTT at each batch
+    size of `batches` on `profile`; the sizes in `timed` are also timed
+    against the bound (device time by CUDA events, L2 flushed, median of
+    N_TIMED) into results[mode][(profile, B)]. Returns the sizes checked."""
+    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    ctx = params.CKKSContext(params.PROFILES[profile], "cuda")
+    tab = ctx.dev
+    for b in sorted(set(batches)):
+        x, rows, q = make_planes(torch, tab, b, ctx.n, gen)
+        idx = rows.long()
+        plain = {
+            "fwd": lambda: ntt_mod.ntt_fwd(x, tab["tw"][idx], q),
+            "inv": lambda: ntt_mod.ntt_inv(x, tab["itw"][idx], q, tab["ninv"][idx][:, None]),
+        }
+        kern = {
+            "fwd": lambda: nk.ntt_cuda(x, rows, tab, False),
+            "inv": lambda: nk.ntt_cuda(x, rows, tab, True),
+        }
+        for mode in ("fwd", "inv"):
+            got, want = kern[mode](), plain[mode]()
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err[mode] = max(max_err[mode], err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{mode} kernel != plain at {profile} B={b}: max err {err}")
+        back = nk.ntt_cuda(nk.ntt_cuda(x, rows, tab, False), rows, tab, True)
+        if not torch.equal(back, x):
+            raise AssertionError(f"roundtrip failed at {profile} B={b}")
+        if b not in timed:
+            del x, q
+            continue
+        n_primes = len(set(rows.tolist()))
+        for mode in ("fwd", "inv"):
+            k_ms = time_cuda(kern[mode], torch, flush)
+            p_ms = time_cuda(plain[mode], torch, flush) if b <= 480 else None
+            bound, by = ntt_bound_ms(b, ctx.n, n_primes, mode == "inv")
+            results[mode][(profile, b)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                                               bound_by=by)
+            log(f"[ntt] {mode} {profile} B={b:<5} equal=True kernel {k_ms:.4f} ms "
+                f"plain {'-' if p_ms is None else f'{p_ms:.4f}'} ms "
+                f"bound {bound:.4f} ms ({by})")
+        del x, q
+    del ctx, tab, flush
+    torch.cuda.empty_cache()
+    return sorted(set(batches))
+
+
+class NttShapes:
+    """The batch sizes of every NTT call the Evaluator makes (crypto/ops.py
+    calls ntt_cuda by name) between start() and stop(), in graph captures
+    and eager calls alike, in `sizes`. It wraps the call and counts nothing:
+    the wrapper's launch counts are its own."""
+
+    def __init__(self):
+        from dacapo_tpu_torch.crypto import ops
+        self.ops, self.kernel, self.sizes = ops, ops.ntt_cuda, set()
+
+    def start(self):
+        def recorded(x, rows, tables, inverse=False):
+            self.sizes.add(int(x.shape[0]))
+            return self.kernel(x, rows, tables, inverse)
+
+        self.ops.ntt_cuda = recorded
+
+    def stop(self):
+        self.ops.ntt_cuda = self.kernel
+
+
+def batch_kernel_checks(torch, params, ntt_mod, nk, profile, sizes, tag):
+    """The NTT at every batch size a batch path gave it (NttShapes),
+    bit-equal to the plain NTT in both modes; the largest timed against its
+    bound. Returns {checked, largest, fwd, inv, max_abs_err}."""
+    results = {"fwd": {}, "inv": {}}
+    max_err = {"fwd": 0, "inv": 0}
+    largest = max(sizes)
+    checked = check_shapes(torch, params, ntt_mod, nk, profile, sizes, (largest,), results,
+                           max_err)
+    log(f"[ntt] {tag}: equal to the plain NTT, both modes and the round trip, at every batch "
+        f"size the path launched on {profile}: B={','.join(map(str, checked))}")
+    return dict(checked=checked, largest=largest, max_abs_err=max_err,
+                **{m: results[m][(profile, largest)] for m in results})
+
+
 # CUDA API calls that launch work (cuda* runtime, cu* low-level), as torch.profiler names them
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                        "cuLaunchKernelEx")
 GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+PROFILE_ATTEMPTS = 3             # traces of one request before a lossy profile fails the run
 
 
 def graph_kernels(prof):
@@ -327,21 +393,38 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     bootstrap's traces drop a few kernel records (a standalone bootstrap's
     trace held one NTT call of each mode fewer than the wrapper launched, in
     two runs, and 69,890 device kernels and copies against 69,895 kernel
-    launch calls)."""
+    launch calls).
+    A trace whose NTT passes are unequal (nk.TraceLossError: it lost a
+    kernel record; a ResNet request's trace of ~555k device kernels once held
+    one pass-A kernel fewer than pass-B) gives no numbers: the request is
+    profiled again, up to PROFILE_ATTEMPTS times, and the run fails if every
+    trace lost records. `request` must be safe to repeat; plain NTT calls
+    are summed over all attempts, and lossy_traces lists the refused ones."""
     from torch.profiler import profile, ProfilerActivity
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    replays0 = graph_replays(executor)
-    torch.cuda.synchronize()
-    reset_counts(nk, ntt_mod)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        request()
+    lossy, plain = [], {}
+    for _ in range(PROFILE_ATTEMPTS):
+        replays0 = graph_replays(executor)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    wrapper, plain = dict(nk.LAUNCHES), dict(ntt_mod.CALLS)
-    replays = graph_replays(executor) - replays0
-    averages = prof.key_averages()
-    ntt_launches = nk.launches_in_profile(averages)
+        reset_counts(nk, ntt_mod)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            request()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        wrapper = dict(nk.LAUNCHES)
+        plain = {k: plain.get(k, 0) + v for k, v in ntt_mod.CALLS.items()}
+        replays = graph_replays(executor) - replays0
+        averages = prof.key_averages()
+        try:
+            ntt_launches = nk.launches_in_profile(averages)
+            break
+        except nk.TraceLossError as e:
+            lossy.append(str(e))
+            log(f"[{tag}] the trace lost kernel records ({e}): profiling the request again")
+    else:
+        raise AssertionError(f"[{tag}] all {PROFILE_ATTEMPTS} traces lost kernel records: "
+                             f"{lossy}")
     per_graph, graph_names = graph_kernels(prof)
     rows = []
     calls = {}
@@ -365,7 +448,7 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
                eager_kernel_launches=eager, graph_launch_calls=graph_calls,
                host_launches=replays + eager, launch_calls=calls,
                ntt_launches=ntt_launches, ntt_wrapper_launches=wrapper,
-               plain_ntt_calls=plain,
+               plain_ntt_calls=plain, lossy_traces=lossy,
                graph_kernels=None if per_graph is None else dict(
                    launches=len(per_graph), total=sum(per_graph),
                    largest=max(per_graph, default=0), per_launch=per_graph,
@@ -738,6 +821,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         return res
 
     def request():
+        boot_s.clear()          # a lossy trace's attempt is profiled again
         vm.setInput(0, packed)
         vm.run()
 
@@ -755,7 +839,108 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         raise AssertionError(f"a kernel mode never ran on the ResNet path: {launches}")
     if any(prof["plain_ntt_calls"].values()):
         raise AssertionError(f"the plain NTT ran on the ResNet path: {prof['plain_ntt_calls']}")
+    out["batch"] = resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod,
+                                out["request_median_s"])
     return out, launches
+
+
+def resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod, single_median_s):
+    """The batch part of the ResNet phase, on the same loaded HEVM (keys and
+    plaintexts shared): precompile_batch(RESNET_BATCH) captures the batch
+    graphs (the oracle's, one per cache key and B, and the segments'), then
+    three timed batch requests (setInputBatch of the test images of seeds
+    100.., runBatch, which decrypts) and a profiled one. Every row's RMS
+    against the torch model is held to the reference's bar, a request must
+    make one batched oracle graph replay per bootstrap and no plain NTT
+    call. Returns the results, with the NTT batch sizes the path launched
+    (NttShapes over the capture and the first request)."""
+    ex, bs, nb = vm.executor, vm.executor.bootstrapper, RESNET_BATCH
+    xs = [torch.randn(1, 3, 32, 32, dtype=torch.double,
+                      generator=torch.Generator().manual_seed(100 + i)) for i in range(nb)]
+    with torch.no_grad():
+        wants = [model(x).numpy().ravel() for x in xs]
+    packed = np.stack([cnn_he.resnet_pack_input(x.numpy(), model, nt=expected["nt"])
+                       for x in xs])
+    out = dict(batch=nb, single_request_median_s=single_median_s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    oracle0 = len(bs._graphs)
+    shapes = NttShapes()
+    shapes.start()
+    try:
+        t0 = time.perf_counter()
+        graphs = vm.precompile_batch(nb)
+        out["capture_s"] = time.perf_counter() - t0
+        out.update(graphs=graphs, capture=ex.batch_capture_stats,
+                   oracle_graphs=len(bs._graphs) - oracle0,
+                   load_parts_s={k: vm.load_seconds.get(k) for k in
+                                 ("batch_oracle_capture", "batch_capture")},
+                   after_capture_bytes=torch.cuda.memory_allocated())
+        log(f"[resnet batch] B={nb}: captured {graphs} segment graphs and "
+            f"{out['oracle_graphs']} oracle graphs in {out['capture_s']:.3f} s "
+            f"({out['load_parts_s']}; warm-up {ex.batch_capture_stats['warmup_s']:.3f} s, "
+            f"capture and instantiate {ex.batch_capture_stats['capture_s']:.3f} s); "
+            f"{out['after_capture_bytes']} bytes allocated")
+        if not graphs or not out["oracle_graphs"]:
+            raise AssertionError("the batch capture made no graph")
+        requests = []
+        for i in range(3):
+            reset_counts(nk, ntt_mod)
+            calls0, replays0, oracle_n = bs.calls, bs.replays, len(bs._graphs)
+            t0 = time.perf_counter()
+            vm.setInputBatch(0, packed)
+            res = vm.runBatch()
+            torch.cuda.synchronize()
+            r = dict(batch_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
+                     plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls - calls0,
+                     oracle_replays=bs.replays - replays0)
+            r["per_ciphertext_s"] = r["batch_s"] / nb
+            logits = [cnn_he.resnet_postprocess(res[b]) for b in range(nb)]
+            r["rms"] = [float(np.sqrt(np.mean((lg - w) ** 2))) for lg, w in zip(logits, wants)]
+            requests.append(r)
+            shapes.stop()       # recorded: the capture and the first request
+            log(f"[resnet batch] request {i}: {r['batch_s']:.3f} s a batch of {nb}, "
+                f"{r['per_ciphertext_s']:.3f} s a ciphertext; rms per row "
+                + ", ".join(f"{v:.4e}" for v in r["rms"])
+                + f" (bar {RMS_BAR_RESNET}); {r['bootstraps']} batched bootstraps, "
+                f"{r['oracle_replays']} oracle graph replays; NTT launches outside graphs "
+                f"{r['eager_ntt_launches']}, plain NTT calls {r['plain_ntt_calls']}")
+            if any(lg.shape != (10,) or not np.isfinite(lg).all() for lg in logits):
+                raise AssertionError("bad ResNet batch output")
+            if not max(r["rms"]) <= RMS_BAR_RESNET:
+                raise AssertionError(f"ResNet batch rms {r['rms']} > {RMS_BAR_RESNET}")
+            if not r["bootstraps"] == r["oracle_replays"] == expected["bootstraps"]:
+                raise AssertionError(f"{r['bootstraps']} batched bootstraps ran "
+                                     f"({r['oracle_replays']} oracle replays), the program "
+                                     f"has {expected['bootstraps']}")
+            if len(bs._graphs) != oracle_n:
+                raise AssertionError("a batch request captured an oracle graph")
+            if any(r["plain_ntt_calls"].values()):
+                raise AssertionError(f"the plain NTT ran on the ResNet batch path: {r}")
+    finally:
+        shapes.stop()
+    out["ntt_batch_sizes"] = sorted(shapes.sizes)
+    out["requests"] = requests
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["batch_median_s"] = statistics.median(r["batch_s"] for r in requests)
+    out["per_ciphertext_median_s"] = out["batch_median_s"] / nb
+    out["single_over_per_ciphertext"] = single_median_s / out["per_ciphertext_median_s"]
+
+    def request():
+        vm.setInputBatch(0, packed)
+        vm.runBatch()
+
+    prof = out["profiled_request"] = profile_request(torch, request, "resnet batch", ex, nk,
+                                                     ntt_mod, cpu=False)
+    log(f"[resnet batch] median {out['batch_median_s']:.3f} s a batch of {nb}, "
+        f"{out['per_ciphertext_median_s']:.3f} s a ciphertext, against {single_median_s:.3f} s "
+        f"a single request in this run ({out['single_over_per_ciphertext']:.2f}x); capture "
+        f"{out['capture_s']:.3f} s; peak {out['peak_bytes']} bytes allocated; NTT batch sizes "
+        f"{out['ntt_batch_sizes']}")
+    if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+        raise AssertionError(f"the profiled ResNet batch: NTT {prof['ntt_launches']}, plain "
+                             f"{prof['plain_ntt_calls']}")
+    return out
 
 
 def scheme_n16(np, torch, Scheme, nk, ntt_mod, params):
@@ -951,6 +1136,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
         return res
 
     def request():
+        boot_s.clear()          # a lossy trace's attempt is profiled again
         vm.setInput(0, x)
         vm.run()
 
@@ -1029,6 +1215,7 @@ def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
     out = {}
     launches = {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
     plain_calls = {k: 0 for k in ntt_mod.CALLS}
+    batch_launches = None
 
     def sync():
         torch.cuda.synchronize()
@@ -1122,6 +1309,9 @@ def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
         r["full_equals_server"] = [full.getOutputCtxt(j) for j in range(
             full.prog.res_length)] == res_blobs
         r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if name == BASIC_BATCH_ROW:
+            r["batch"] = basic_batch(np, torch, full, test, row["nt"], nk, ntt_mod)
+            batch_launches = r["batch"]["profiled_request"]["ntt_launches"]
         log(f"[basic] {name} ({profile}, {row['pipeline']}/{row['waterline']}): .hevm "
             f"{r['hevm_sha256'][:16]}... equal to the JAX package's; keygen "
             f"{r['keygen_s']:.3f} s, full load {r['full_load_s']:.3f} s, client encrypt "
@@ -1145,7 +1335,87 @@ def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
     if any(plain_calls.values()):
         raise AssertionError(f"the plain NTT ran on the basic path: {plain_calls}")
     log(f"[basic] NTT calls of the five profiled server requests, on the device: {launches}")
-    return out, launches
+    if batch_launches is None:
+        raise AssertionError(f"the basic phase did not serve {BASIC_BATCH_ROW} as a batch")
+    return out, launches, batch_launches
+
+
+def basic_batch(np, torch, full, test, nt, nk, ntt_mod):
+    """The batch part of the basic phase, on the row's full HEVM (loaded,
+    its keys made): BASIC_BATCH input sets (examples/tests/<Name>.py's case
+    with seeds 100.., so row 0 is the phase's own input) encrypted by
+    setInputBatch; precompile_batch captures the batch graphs; three timed
+    batch requests and a profiled one (executor.run_encrypted_batch, the
+    server's work); every row's output ciphertexts must equal a single
+    request's on the same argument ciphertexts byte for byte, and runBatch's
+    decrypted rows the numpy golden (RMS <= RMS_BAR_BASIC). The singles are
+    timed too, for the comparison in the same run."""
+    ex, nb = full.executor, BASIC_BATCH
+    cases = [test.case(nt=nt, seed=100 + b) for b in range(nb)]
+    for i in range(len(cases[0][0])):
+        full.setInputBatch(i, np.stack([c[0][i] for c in cases]))
+    args = [full._arg_cts_batch[i] for i in range(len(cases[0][0]))]
+    out = dict(batch=nb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shapes = NttShapes()
+    shapes.start()
+    try:
+        t0 = time.perf_counter()
+        out["graphs"] = full.precompile_batch(nb)
+        out["capture_s"] = time.perf_counter() - t0
+        out["capture"] = ex.batch_capture_stats
+        times = []
+        for i in range(3):
+            reset_counts(nk, ntt_mod)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, meta = ex.run_encrypted_batch(args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            shapes.stop()       # recorded: the capture and the first request
+            if any(ntt_mod.CALLS.values()):
+                raise AssertionError(f"the plain NTT ran on the basic batch path: {ntt_mod.CALLS}")
+    finally:
+        shapes.stop()
+    outs = [o.clone() for o in outs]
+    singles, equal = [], True
+    for b in range(nb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one, one_meta = ex.run_encrypted([(data[b], nl, sc) for data, nl, sc in args])
+        torch.cuda.synchronize()
+        singles.append(time.perf_counter() - t0)
+        equal &= one_meta == meta and all(torch.equal(o[b], x) for o, x in zip(outs, one))
+    dec = full.runBatch()
+    rms = [float(np.sqrt(np.mean((np.asarray(post(dec[b]), np.float64).ravel()
+                                  - np.asarray(golden, np.float64).ravel()) ** 2)))
+           for b, (_, golden, post) in enumerate(cases)]
+    out.update(batch_s=times, batch_median_s=statistics.median(times), single_s=singles,
+               single_median_s=statistics.median(singles), rows_equal_singles=equal, rms=rms,
+               ntt_batch_sizes=sorted(shapes.sizes), peak_bytes=torch.cuda.max_memory_allocated())
+    out["per_ciphertext_median_s"] = out["batch_median_s"] / nb
+    out["single_over_per_ciphertext"] = out["single_median_s"] / out["per_ciphertext_median_s"]
+    prof = out["profiled_request"] = profile_request(
+        torch, lambda: ex.run_encrypted_batch(args), f"basic {BASIC_BATCH_ROW} batch", ex, nk,
+        ntt_mod, cpu=False)
+    log(f"[basic batch] {BASIC_BATCH_ROW} B={nb}: capture {out['capture_s']:.3f} s "
+        f"({out['graphs']} graphs); batches " + ", ".join(f"{t:.4f}" for t in times)
+        + f" s (median {out['batch_median_s']:.4f}, {out['per_ciphertext_median_s']:.4f} s a "
+        f"ciphertext) against single requests of median {out['single_median_s']:.4f} s "
+        f"({out['single_over_per_ciphertext']:.2f}x); rows byte-equal to the singles: {equal}; "
+        f"rms per row " + ", ".join(f"{v:.3e}" for v in rms)
+        + f" (bar {RMS_BAR_BASIC}); idle share {prof['idle_share']}, NTT calls on the device "
+        f"{prof['ntt_launches']}; peak {out['peak_bytes']} bytes; NTT batch sizes "
+        f"{out['ntt_batch_sizes']}")
+    if not equal:
+        raise AssertionError(f"{BASIC_BATCH_ROW}: a batch row differs from its single request")
+    if not max(rms) <= RMS_BAR_BASIC or dec.shape[0] != nb:
+        raise AssertionError(f"{BASIC_BATCH_ROW} batch rms {rms} > {RMS_BAR_BASIC}")
+    if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+        raise AssertionError(f"the profiled basic batch: NTT {prof['ntt_launches']}, plain "
+                             f"{prof['plain_ntt_calls']}")
+    return out
 
 
 def profile_ops(torch, nk, ntt_mod):
@@ -1242,6 +1512,9 @@ def main():
             "mlp", serve_mlp, np, torch, HEVM, mlp, nk, ntt_mod, params, keydir, files)
         report["resnet"], by_path["resnet_tpu_n15_request"] = timed(
             "resnet", serve_resnet, np, torch, HEVM, nk, ntt_mod, keydir)
+    resnet_batch_out = report["resnet"]["batch"]
+    by_path[f"resnet_tpu_n15_batch{RESNET_BATCH}_request"] = \
+        resnet_batch_out["profiled_request"]["ntt_launches"]
     report["scheme_tpu_n16"] = timed("tpu_n16", scheme_n16, np, torch, Scheme, nk, ntt_mod,
                                      params)
     by_path["scheme_tpu_n16"] = report["scheme_tpu_n16"]["launches"]
@@ -1255,23 +1528,41 @@ def main():
         return out
 
     report["native"] = timed("native", native)
-    report["basic"], by_path["basic_server_requests"] = timed(
-        "basic", serve_basic, np, torch, HEVM, nk, ntt_mod, os.path.join(work.name, "basic"))
+    report["basic"], by_path["basic_server_requests"], \
+        by_path[f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request"] = timed(
+            "basic", serve_basic, np, torch, HEVM, nk, ntt_mod,
+            os.path.join(work.name, "basic"))
+    # the NTT at every batch size the two batch paths launched
+    basic_batch_out = report["basic"][BASIC_BATCH_ROW]["batch"]
+    report["ntt_batch"] = timed("batch_kernel_checks", lambda: {
+        f"resnet_tpu_n15_B{RESNET_BATCH}": batch_kernel_checks(
+            torch, params, ntt_mod, nk, "tpu_n15", resnet_batch_out["ntt_batch_sizes"],
+            f"ResNet B={RESNET_BATCH}"),
+        f"{BASIC_BATCH_ROW}_tpu_n14_B{BASIC_BATCH}": batch_kernel_checks(
+            torch, params, ntt_mod, nk, "tpu_n14", basic_batch_out["ntt_batch_sizes"],
+            f"{BASIC_BATCH_ROW} B={BASIC_BATCH}")})
     report["profile"], by_path["profile_tpu_n14"] = timed(
         "profile", profile_ops, torch, nk, ntt_mod)
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
+    per_ct = {f"resnet_tpu_n15_batch{RESNET_BATCH}_request": RESNET_BATCH,
+              f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request": BASIC_BATCH}
     kernels = []
     for mode, name, line in (("fwd", "ntt_fwd_cuda", 94), ("inv", "ntt_inv_cuda", 110)):
         r = results[mode][("tpu_n15", 112)]
         n15b = {f"B={b}": results[mode][("tpu_n15b", b)] for b in (120, 240)}
         oracle = {f"B={b}": results[mode][("tpu_n15", b)] for b in (3, 28, 84)}
         n14 = {f"B={b}": results[mode][("tpu_n14", b)] for b in BASIC_TIMED_N14}
+        batch_shapes = {path: dict(largest_B=r["largest"], checked_B=r["checked"],
+                                   max_abs_err=r["max_abs_err"][mode], **r[mode])
+                        for path, r in report["ntt_batch"].items()}
         kernels.append(dict(
             name=name, route="cuda", source="dacapo_tpu_torch/csrc/ntt.cu",
             replaces=f"dacapo_tpu/crypto/pallas/ntt_kernel.py:{line}",
             launches=by_path["resnet_tpu_n15_request"][name],
-            max_abs_err=max_err[mode], ms=r["ms"],
+            max_abs_err=max(max_err[mode], *(b["max_abs_err"][mode]
+                                             for b in report["ntt_batch"].values())),
+            ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape="B=112, N=2^15 (ModUp batch at tpu_n15)",
             launches_counted=("NTT calls the device ran in one profiled request of each "
@@ -1280,6 +1571,8 @@ def main():
                               "summed); tpu_n16 and the profile phase (no graphs): the "
                               "wrapper's count"),
             launches_by_path={k: v[name] for k, v in by_path.items()},
+            launches_per_ciphertext={k: v[name] / per_ct.get(k, 1) for k, v in by_path.items()},
+            batch_shapes=batch_shapes,
             native_shapes_tpu_n15b=n15b, oracle_shapes_tpu_n15=oracle,
             basic_shapes_tpu_n14=n14))
     report.update(phase_seconds=seconds, kernels=kernels)

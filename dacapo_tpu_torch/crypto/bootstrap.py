@@ -25,6 +25,14 @@ The oracle has the reference's two paths:
   the reference's. Inputs at one row (nl < 2) always take it, as in the
   reference.
 
+Both paths have a batched form, `bootstrap_batch` over [B, 2, nl, N] (the
+reference's `bootstrap_batch` and `_oracle_fn(batch=B)`): on the device path
+every row draws its own v, e0, e1 from the generator in one call, and on the
+card each cache key (nl, base rows, nl2, B) is one CUDA graph over the whole
+batch; the host path cools and lifts the whole batch, then draws all B v,
+then all B e0, then all B e1 from the numpy RNG, the reference's batch
+order (which differs from B single bootstraps').
+
 Both paths compute the deterministic part, the lifted plaintext m2, with
 `_lifted_plaintext`, and they differ in one step. The host path lifts from
 the bottom prime pair as the reference does, so an input that arrives hot
@@ -62,7 +70,7 @@ def _cool_input(s, data, nl, scale, limit_log2):
     """Rescale single RNS rows (exact division) until log2(scale) +
     _LIFT_VMAX_BITS <= limit_log2. Returns (data, nl, scale, K) where K is
     the exact integer product of the dropped primes (1 if none)."""
-    data = data[:, :nl, :]
+    data = data[..., :nl, :]
     K = 1
     while nl > 2 and np.log2(scale) + _LIFT_VMAX_BITS > limit_log2:
         data = s.ev.rescale_k(data, nl, 1)
@@ -130,55 +138,59 @@ class EmulatedBootstrapper:
 
     def _lifted_plaintext(self, data, nb, K, nl2):
         """The deterministic part of a refresh: m = c0 + c1*s at the bottom
-        nb rows of a ciphertext, iNTT, exact centered CRT lift to nl2 rows,
-        reheat by K (the host path's cooling), NTT. Returns m2, int32
-        [nl2, N]."""
+        nb rows of a ciphertext [..., 2, nl, N] (or a batch of them), iNTT,
+        exact centered CRT lift to nl2 rows, reheat by K (the host path's
+        cooling), NTT. Returns m2, int32 [..., nl2, N]."""
         s = self.s
         ctx = s.ctx
         ev = s.ev
         rows = list(range(nb))
         q = ev._q(rows)
-        m_ntt = add_mod(data[0, :nb], mul_mod(data[1, :nb], s.keys.s_ntt[:nb], q), q)
-        c = ev.intt(m_ntt, rows)                       # [nb, N] coeffs
+        m_ntt = add_mod(data[..., 0, :nb, :],
+                        mul_mod(data[..., 1, :nb, :], s.keys.s_ntt[:nb], q), q)
+        c = ev.intt(m_ntt, rows)                       # [..., nb, N] coeffs
         if nb >= 2:
-            lifted = crt_expand(ctx, list(c), nl2)
+            lifted = crt_expand(ctx, list(c.unbind(-2)), nl2)
         else:
-            lifted = single_crt_expand(ctx, c[0], nl2)
+            lifted = single_crt_expand(ctx, c[..., 0, :], nl2)
         if K != 1:
             lifted = _reheat(ctx, lifted, nl2, K)
         return ev.ntt(lifted, list(range(nl2)))
 
     def _encrypt(self, m2, v, e0, e1, nl2):
-        """c0 = v*pk0 + e0 + m2, c1 = v*pk1 + e1 over nl2 rows (NTT domain)."""
+        """c0 = v*pk0 + e0 + m2, c1 = v*pk1 + e1 over nl2 rows (NTT domain);
+        m2, v, e0, e1 [..., nl2, N] -> [..., 2, nl2, N]."""
         ev = self.s.ev
         q2 = ev._q(range(nl2))
         pk = self.s.keys.pk[:, :nl2, :]
         c0 = add_mod(add_mod(mul_mod(v, pk[0], q2), e0, q2), m2, q2)
         c1 = add_mod(mul_mod(v, pk[1], q2), e1, q2)
-        return torch.stack([c0, c1])
+        return torch.stack([c0, c1], dim=-3)
 
-    def draw(self):
-        """The device path's fresh randomness, int64 [3, N]: v in {-1, 0, 1}
-        and e0, e1 = round(normal * 3.2), from self.gen on its device."""
+    def draw(self, batch=()):
+        """The device path's fresh randomness, int64 [*batch, 3, N]: v in
+        {-1, 0, 1} and e0, e1 = round(normal * 3.2), from self.gen on its
+        device; each row of a batch draws its own."""
         n, dev = self.s.ctx.n, self.gen.device
-        v = torch.randint(-1, 2, (n,), generator=self.gen, device=dev)
-        e = torch.randn((2, n), generator=self.gen, device=dev)
-        return torch.cat([v[None], torch.round(e * 3.2).to(torch.int64)])
+        batch = tuple(batch)
+        v = torch.randint(-1, 2, batch + (n,), generator=self.gen, device=dev)
+        e = torch.randn(batch + (2, n), generator=self.gen, device=dev)
+        return torch.cat([v[..., None, :], torch.round(e * 3.2).to(torch.int64)], dim=-2)
 
     def _refresh(self, data, nb, nl2):
-        """The device path over a ciphertext (the body of one oracle
-        graph): the lifted plaintext from nb base rows, then a fresh
-        encryption whose three noise polynomials are taken mod every prime
-        (numpy sign semantics: torch.remainder) and go through one NTT of
-        3 * nl2 rows."""
+        """The device path over a ciphertext [2, nl, N] or a batch [B, 2,
+        nl, N] (the body of one oracle graph): the lifted plaintext from nb
+        base rows, then a fresh encryption whose three noise polynomials
+        (per row) are taken mod every prime (numpy sign semantics:
+        torch.remainder) and go through one NTT of B * 3 * nl2 planes."""
         ev = self.s.ev
         m2 = self._lifted_plaintext(data, nb, 1, nl2)
         rows2 = list(range(nl2))
-        noise = (self.draw()[:, None, :] % ev._q(rows2)).to(torch.int32)
-        v, e0, e1 = ev.ntt(noise.reshape(3 * nl2, -1), rows2 * 3).reshape(3, nl2, -1)
+        noise = (self.draw(data.shape[:-3])[..., None, :] % ev._q(rows2)).to(torch.int32)
+        v, e0, e1 = ev.ntt(noise, rows2).unbind(-3)
         return self._encrypt(m2, v, e0, e1, nl2)
 
-    def capture(self, nl, scale, target_level):
+    def capture(self, nl, scale, target_level, batch=None):
         """The CUDA graph of the refresh for (nl, scale, target_level), made
         at first use: an eager run fills the Evaluator's and the CRT lift's
         device caches (no upload may run under capture), then the capture,
@@ -186,13 +198,16 @@ class EmulatedBootstrapper:
         The generator's state is restored afterwards: capturing draws
         nothing. A graph reads the keys it was captured with, so a new key
         set captures again. Returns the record: graph, inp (static input
-        [2, nl, N]), out (static output [2, nl2, N])."""
-        return self._graph(self._key(nl, scale, target_level))
+        [2, nl, N], or [B, 2, nl, N] for a batch of B), out (static output
+        [..., 2, nl2, N])."""
+        return self._graph(self._key(nl, scale, target_level, batch))
 
-    def _key(self, nl, scale, target_level):
-        """The device path's cache key: (nl, base rows, nl2)."""
-        return (nl, self._base_rows(nl, scale),
-                (target_level + 1) * self.s.ctx.config.rescale_rows)
+    def _key(self, nl, scale, target_level, batch=None):
+        """The device path's cache key: (nl, base rows, nl2), and B after
+        them for a batch of B."""
+        key = (nl, self._base_rows(nl, scale),
+               (target_level + 1) * self.s.ctx.config.rescale_rows)
+        return key if batch is None else key + (batch,)
 
     def _graph(self, key):
         keys = self.s.keys
@@ -202,17 +217,18 @@ class EmulatedBootstrapper:
         self._graphs.pop(key, None)
         t0 = time.perf_counter()
         dev = self.s.device
-        inp = torch.zeros((2, key[0], self.s.ctx.n), dtype=torch.int32, device=dev)
+        inp = torch.zeros(key[3:] + (2, key[0], self.s.ctx.n), dtype=torch.int32,
+                          device=dev)
         state = self.gen.get_state()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            self._refresh(inp, *key[1:])
+            self._refresh(inp, *key[1:3])
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.gen)
         with torch.cuda.graph(graph, stream=stream):
-            out = self._refresh(inp, *key[1:])
+            out = self._refresh(inp, *key[1:3])
         self.gen.set_state(state)
         self.capture_s += time.perf_counter() - t0
         rec = self._graphs[key] = dict(graph=graph, inp=inp, out=out, keys=keys)
@@ -220,26 +236,32 @@ class EmulatedBootstrapper:
 
     def bootstrap(self, data, nl, scale, target_level):
         """Refresh int32 [2, >=nl, N] at `nl` rows to the chain of
-        `target_level`. Returns (data [2, nl2, N], (nl2, scale)); the scale
-        is kept. On the card the device path replays the key's graph and
+        `target_level`, or a batch [B, 2, >=nl, N] in one call (counted
+        once in `calls`; the reference's bootstrap_batch). Returns (data
+        [..., 2, nl2, N], (nl2, scale)); the scale is kept. On the card the
+        device path replays the graph of the key (with B for a batch) and
         returns a copy of its output, which the next replay overwrites."""
         self.calls += 1
         if self.host_rng or nl < 2:
             return self._host_bootstrap(data, nl, scale, target_level)
-        key = self._key(nl, scale, target_level)
+        key = self._key(nl, scale, target_level, data.shape[0] if data.dim() == 4 else None)
         nl2 = key[2]
         if data.device.type != "cuda":
-            return self._refresh(data[:, :nl], *key[1:]), (nl2, scale)
+            return self._refresh(data[..., :nl, :], *key[1:3]), (nl2, scale)
         rec = self._graph(key)
-        rec["inp"].copy_(data[:, :nl])
+        rec["inp"].copy_(data[..., :nl, :])
         rec["graph"].replay()
         self.replays += 1
         return rec["out"].clone(), (nl2, scale)
 
+    bootstrap_batch = bootstrap
+
     def _host_bootstrap(self, data, nl, scale, target_level):
         """The host-RNG path, the reference's: cool to the bottom pair, the
         lifted plaintext, reheat, and a fresh encryption with v, e0, e1 from
-        the key generator's numpy RNG."""
+        the key generator's numpy RNG. A batch [B, 2, nl, N] is cooled and
+        lifted whole, then draws all its v, then all e0, then all e1, as the
+        reference's bootstrap_batch does."""
         s = self.s
         ctx = s.ctx
         nl2 = (target_level + 1) * ctx.config.rescale_rows
@@ -248,9 +270,15 @@ class EmulatedBootstrapper:
         # fresh encryption of m2: host RNG for v/e in the reference's order
         kg = s.keygen
         rows2 = list(range(nl2))
-        v = kg._ntt_planes(kg._ternary(), rows2)
-        e0 = kg._ntt_planes(kg._gauss(), rows2)
-        e1 = kg._ntt_planes(kg._gauss(), rows2)
+
+        def planes(gen):
+            if data.dim() == 3:
+                return kg._ntt_planes(gen(), rows2)
+            return torch.stack([kg._ntt_planes(gen(), rows2) for _ in range(data.shape[0])])
+
+        v = planes(kg._ternary)
+        e0 = planes(kg._gauss)
+        e1 = planes(kg._gauss)
         return self._encrypt(m2, v, e0, e1, nl2), (nl2, scale)
 
 

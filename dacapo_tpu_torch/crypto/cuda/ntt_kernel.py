@@ -135,6 +135,11 @@ def ntt_cuda(x, rows, tables, inverse=False):
     return y
 
 
+class TraceLossError(RuntimeError):
+    """A profiler trace that lost kernel records: a mode's two NTT passes
+    were not seen the same number of times."""
+
+
 _PASS_NAME = re.compile(r"ntt_pass<\s*\d+\s*,\s*(\w+)\s*,\s*(\w+)\s*>")
 
 
@@ -143,7 +148,7 @@ def launches_in_profile(events):
     device, graph replays included: `events` are the trace's
     key_averages(). Each call runs one `ntt_pass<LOGN, PASS_B, INVERSE>`
     kernel of each pass, so a mode's calls are its pass-A kernels; unequal
-    pass counts (a trace that lost records) raise. Reads a trace and adds
+    pass counts (a trace that lost records) raise TraceLossError. Reads a trace and adds
     nothing to LAUNCHES."""
     passes = {}
     for e in events:
@@ -155,6 +160,6 @@ def launches_in_profile(events):
     for name, inverse in (("ntt_fwd_cuda", False), ("ntt_inv_cuda", True)):
         a, b = passes.get((inverse, False), 0), passes.get((inverse, True), 0)
         if a != b:
-            raise RuntimeError(f"{name}: the trace holds {a} pass-A and {b} pass-B kernels")
+            raise TraceLossError(f"{name}: the trace holds {a} pass-A and {b} pass-B kernels")
         out[name] = a
     return out

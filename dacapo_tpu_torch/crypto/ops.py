@@ -6,9 +6,20 @@ caller there and are not ported). Every op is a plain function of tensors;
 the level and scale metadata is handled by the caller (vm/executor.py,
 crypto/bootstrap_native.py), as SEAL tracks ciphertext.scale().
 
-Ciphertext polys: int32 [2, nl, N] in NTT domain, rows = Q primes 0..nl-1.
+Ciphertext polys: int32 [..., 2, nl, N] in NTT domain, rows = Q primes
+                  0..nl-1; leading dimensions are a batch of ciphertexts.
 Plaintext:        int32 [nl, N] in NTT domain.
 Key-switch keys:  int32 [dnum, 2, num_all, N] (NTT domain, full QP basis).
+
+Batching. The reference batches with jax.vmap over these functions. The port
+cannot trace the ctypes call of the CUDA NTT that way, and a loop over the
+rows would launch every kernel once per row; so every op the executor calls
+takes a batch [B, 2, nl, N] (or none, [2, nl, N]) and computes the whole
+batch in each kernel: the ciphertext axes are indexed from the right, and
+an NTT flattens the batch into its planes with the row list tiled (`_ntt`).
+Plaintexts and keys are never batched: they broadcast over the batch, as
+the reference's in_axes=None does. An unbatched call launches exactly the
+kernels it launched before batching existed, on the same shapes.
 
 NTT-domain planes are in ORBIT ORDER (params.CKKSContext.orbit_perm): the
 fixed reorder is a gather at the NTT boundary (`_ntt`), so a slot rotation is
@@ -30,9 +41,14 @@ from .ntt import ntt_fwd, ntt_inv
 from .params import to_dev
 
 
-def _sum_mod(terms, q):
-    """sum(terms) mod q over dim 0 of canonical int64 residues -> int32."""
-    return (terms.sum(0) % q).to(torch.int32)
+def _sum_mod(terms, q, dim=0):
+    """sum(terms) mod q over `dim` of canonical int64 residues -> int32."""
+    return (terms.sum(dim) % q).to(torch.int32)
+
+
+def _stack2(a, b):
+    """The two polys of a ciphertext, each [..., nl, N] -> [..., 2, nl, N]."""
+    return torch.stack([a, b], dim=-3)
 
 
 class Evaluator:
@@ -81,9 +97,16 @@ class Evaluator:
 
     # ---------------------------------------------------------------- NTT
     def _ntt(self, x, rows, inverse=False):
-        """NTT/iNTT of x int32 [B, N]; row b of x uses prime rows[b]. The
-        orbit reorder is a gather on the kernel boundary."""
+        """NTT/iNTT of x int32 [..., R, N] with R = len(rows): plane r of
+        the last two axes uses prime rows[r], whatever the leading (batch)
+        axes. The planes go to one kernel call as [prod(...) * R, N] with
+        the row list tiled. The orbit reorder is a gather on the kernel
+        boundary."""
+        shape = x.shape
         rows = tuple(rows)
+        if rows:
+            rows *= x.numel() // (len(rows) * self.n)
+        x = x.reshape(-1, self.n)
         if inverse:
             x = x[..., self._perm("orbit_inv")]          # orbit -> kernel order
         idx = self._rows(rows)
@@ -97,7 +120,7 @@ class Evaluator:
             out = ntt_fwd(x, tab["tw"][idx], tab["q"][idx][:, None])
         if not inverse:
             out = out[..., self._perm("orbit_perm")]     # kernel -> orbit order
-        return out
+        return out.reshape(shape)
 
     def ntt(self, x, rows):
         return self._ntt(x, rows, False)
@@ -116,7 +139,8 @@ class Evaluator:
         return neg_mod(a, self._q(range(nl)))
 
     def add_pt(self, ct, pt, nl):
-        return torch.stack([add_mod(ct[0], pt, self._q(range(nl))), ct[1]])
+        return _stack2(add_mod(ct[..., 0, :, :], pt, self._q(range(nl))),
+                       ct[..., 1, :, :])
 
     def mul_pt(self, ct, pt, nl):
         return mul_mod(ct, pt, self._q(range(nl)))
@@ -145,7 +169,7 @@ class Evaluator:
 
     def mod_drop(self, ct, k: int):
         """modswitch by k rows = drop the top k RNS rows (SEAL semantics)."""
-        return ct[:, : ct.shape[1] - k, :]
+        return ct[..., : ct.shape[-2] - k, :]
 
     # -------------------------------------------------------------- rescale
     def rescale_k(self, x, nl, k: int):
@@ -159,17 +183,17 @@ class Evaluator:
         centered lift (reference ops._rescale)."""
         lc = self.ctx.level(nl)
         rows_lo = list(range(nl - 1))
-        top_c = self._ntt(ct[:, nl - 1, :], [nl - 1] * 2, inverse=True)
+        top_c = self._ntt(ct[..., nl - 1, :], [nl - 1] * 2, inverse=True)
         # centered lift: v' = v or v - q_top, as a residue mod q_i; q_top may
         # exceed q_i (q_top < 2 q_i), so reduce v first, then add the
         # precomputed correction (q_i - q_top mod q_i)
         q = self._q(rows_lo)                         # [nl-1, 1]
-        v = top_c[:, None, :]                        # [2, 1, N]
+        v = top_c[..., None, :]                      # [..., 2, 1, N]
         vm = torch.where(v >= q, v - q, v)
         r2 = add_mod(vm, self._c(lc.rs_diff)[:, None], q)
-        lifted = torch.where(v > lc.rs_half, r2, vm)  # [2, nl-1, N]
-        conv = self._ntt(lifted.reshape(2 * (nl - 1), self.n), rows_lo * 2)
-        num = sub_mod(ct[:, : nl - 1, :], conv.reshape(2, nl - 1, self.n), q)
+        lifted = torch.where(v > lc.rs_half, r2, vm)  # [..., 2, nl-1, N]
+        conv = self._ntt(lifted, rows_lo)
+        num = sub_mod(ct[..., : nl - 1, :], conv, q)
         return mul_mod(num, self._c(lc.rs_inv)[:, None], q)
 
     # ---------------------------------------------------------- keyswitch
@@ -178,69 +202,74 @@ class Evaluator:
         return [cfg.num_q + i for i in range(cfg.alpha)]
 
     def modup(self, c_ntt, nl):
-        """ModUp decomposition of `c_ntt` (int32 [nl, N], NTT domain) ->
-        int32 [dnum_active, nl + alpha, N] digit planes over Q^{(nl)}P in
-        NTT domain (hybrid key switching with approximate base conversion;
-        see params.py). Rotations of one ciphertext share it (hoisting)."""
+        """ModUp decomposition of `c_ntt` (int32 [..., nl, N], NTT domain)
+        -> int32 [..., dnum_active, nl + alpha, N] digit planes over
+        Q^{(nl)}P in NTT domain (hybrid key switching with approximate base
+        conversion; see params.py). Rotations of one ciphertext share it
+        (hoisting)."""
         lc = self.ctx.level(nl)
         c_coeff = self._ntt(c_ntt, range(nl), inverse=True)
         # every group's coeff-domain extension, then ONE batched NTT
         exts, targets = [], []
         for g in lc.groups:
             lo, hi = g.rows[0], g.rows[-1] + 1
-            u = mul_mod(c_coeff[lo:hi], self._c(g.t_coef)[:, None], self._q(g.rows))
+            u = mul_mod(c_coeff[..., lo:hi, :], self._c(g.t_coef)[:, None],
+                        self._q(g.rows))
             tq = self._q(g.targets)                  # [T, 1]
             m = self._c(g.m).to(torch.int64)         # [g, T]
             exts.append(_sum_mod(
-                u.to(torch.int64)[:, None, :] * m[:, :, None] % tq, tq))
+                u.to(torch.int64)[..., None, :] * m[:, :, None] % tq, tq, dim=-3))
             targets.extend(g.targets)
-        ext_ntt = self._ntt(torch.cat(exts), targets)
+        ext_ntt = self._ntt(torch.cat(exts, dim=-2), targets)
         digits = []
         off = 0
         for g in lc.groups:
             lo, hi = g.rows[0], g.rows[-1] + 1
-            ext = ext_ntt[off: off + len(g.targets)]
+            ext = ext_ntt[..., off: off + len(g.targets), :]
             off += len(g.targets)
             # own planes stay in NTT domain, scaled by S
-            own = mul_mod(c_ntt[lo:hi], self._c(g.s_ntt)[:, None], self._q(g.rows))
+            own = mul_mod(c_ntt[..., lo:hi, :], self._c(g.s_ntt)[:, None],
+                          self._q(g.rows))
             # targets are Q rows [0, lo) and [hi, nl), then the specials:
             # so the digit in Q^{(nl)}P row order is ext[:lo] | own | ext[lo:]
-            digits.append(torch.cat([ext[:lo], own, ext[lo:]]))
-        return torch.stack(digits)
+            digits.append(torch.cat([ext[..., :lo, :], own, ext[..., lo:, :]], dim=-2))
+        return torch.stack(digits, dim=-3)
 
     def _ks_inner(self, digits, nl, ksk):
-        """Inner product of ModUp digits with a key-switch key ->
-        (acc0, acc1) int32 [nl + alpha, N] over the QP basis."""
-        nd = digits.shape[0]
+        """Inner product of ModUp digits [..., nd, nl + alpha, N] with a
+        key-switch key -> (acc0, acc1) int32 [..., nl + alpha, N] over the
+        QP basis."""
+        nd = digits.shape[-3]
         num_q = self.ctx.config.num_q
         q = self._q(list(range(nl)) + self._sp_rows())
         k = torch.cat([ksk[:nd, :, :nl], ksk[:nd, :, num_q:]], dim=2)
         d = digits.to(torch.int64)
-        acc0 = _sum_mod(d * k[:, 0].to(torch.int64) % q, q)
-        acc1 = _sum_mod(d * k[:, 1].to(torch.int64) % q, q)
+        acc0 = _sum_mod(d * k[:, 0].to(torch.int64) % q, q, dim=-3)
+        acc1 = _sum_mod(d * k[:, 1].to(torch.int64) % q, q, dim=-3)
         return acc0, acc1
 
     def _mod_down_pair(self, x0, x1, nl):
-        """ModDown P -> Q^{(nl)} of both keyswitch halves, batched."""
+        """ModDown P -> Q^{(nl)} of both keyswitch halves [..., nl + alpha,
+        N], batched."""
         lc = self.ctx.level(nl)
-        alpha = self.ctx.config.alpha
         sp_rows = self._sp_rows()
-        xp_c = self._ntt(torch.cat([x0[nl:], x1[nl:]]), sp_rows * 2, inverse=True)
-        u = mul_mod(xp_c.reshape(2, alpha, self.n), self._c(lc.md_t)[:, None],
-                    self._q(sp_rows))                # [2, alpha, N]
+        xp_c = self._ntt(_stack2(x0[..., nl:, :], x1[..., nl:, :]), sp_rows,
+                         inverse=True)
+        u = mul_mod(xp_c, self._c(lc.md_t)[:, None],
+                    self._q(sp_rows))                # [..., 2, alpha, N]
         q = self._q(range(nl))
         md_m = self._c(lc.md_m).to(torch.int64)      # [alpha, nl]
-        conv = _sum_mod((u.to(torch.int64)[:, :, None, :]
-                         * md_m[None, :, :, None] % q).transpose(0, 1), q)
-        conv = self._ntt(conv.reshape(2 * nl, self.n), list(range(nl)) * 2)
-        conv = conv.reshape(2, nl, self.n)
+        conv = _sum_mod(u.to(torch.int64)[..., None, :] * md_m[:, :, None] % q,
+                        q, dim=-3)                   # [..., 2, nl, N]
+        conv = self._ntt(conv, range(nl))
         pv = self._c(lc.pinv)[:, None]
-        out0 = mul_mod(sub_mod(x0[:nl], conv[0], q), pv, q)
-        out1 = mul_mod(sub_mod(x1[:nl], conv[1], q), pv, q)
+        out0 = mul_mod(sub_mod(x0[..., :nl, :], conv[..., 0, :, :], q), pv, q)
+        out1 = mul_mod(sub_mod(x1[..., :nl, :], conv[..., 1, :, :], q), pv, q)
         return out0, out1
 
     def keyswitch(self, c_ntt, nl, ksk):
-        """Switch the key under `c_ntt` (int32 [nl, N]) -> (b_add, a_add)."""
+        """Switch the key under `c_ntt` (int32 [..., nl, N]) -> (b_add,
+        a_add)."""
         acc0, acc1 = self._ks_inner(self.modup(c_ntt, nl), nl, ksk)
         return self._mod_down_pair(acc0, acc1, nl)
 
@@ -248,19 +277,22 @@ class Evaluator:
     def mul_ct(self, a, b, nl, rlk):
         """ct * ct multiply + relinearization."""
         q = self._q(range(nl))
-        d0 = mul_mod(a[0], b[0], q)
-        d1 = add_mod(mul_mod(a[0], b[1], q), mul_mod(a[1], b[0], q), q)
-        ks0, ks1 = self.keyswitch(mul_mod(a[1], b[1], q), nl, rlk)
-        return torch.stack([add_mod(d0, ks0, q), add_mod(d1, ks1, q)])
+        a0, a1 = a.unbind(-3)
+        b0, b1 = b.unbind(-3)
+        d0 = mul_mod(a0, b0, q)
+        d1 = add_mod(mul_mod(a0, b1, q), mul_mod(a1, b0, q), q)
+        ks0, ks1 = self.keyswitch(mul_mod(a1, b1, q), nl, rlk)
+        return _stack2(add_mod(d0, ks0, q), add_mod(d1, ks1, q))
 
     def square_ct(self, a, nl, rlk):
         """ct * ct of one ciphertext with itself + relinearization."""
         q = self._q(range(nl))
-        d0 = mul_mod(a[0], a[0], q)
-        d1 = mul_mod(a[0], a[1], q)
+        a0, a1 = a.unbind(-3)
+        d0 = mul_mod(a0, a0, q)
+        d1 = mul_mod(a0, a1, q)
         d1 = add_mod(d1, d1, q)
-        ks0, ks1 = self.keyswitch(mul_mod(a[1], a[1], q), nl, rlk)
-        return torch.stack([add_mod(d0, ks0, q), add_mod(d1, ks1, q)])
+        ks0, ks1 = self.keyswitch(mul_mod(a1, a1, q), nl, rlk)
+        return _stack2(add_mod(d0, ks0, q), add_mod(d1, ks1, q))
 
     def automorphism(self, planes, shift: int):
         """Slot-rotation automorphism in the orbit layout: roll each half of
@@ -279,33 +311,37 @@ class Evaluator:
     def rotate(self, ct, nl, steps: int, gk):
         """Left-rotate slots by `steps` with the galois key for that step."""
         shift = steps % (self.n // 2)
-        c0p = self.automorphism(ct[0], shift)
-        ks0, ks1 = self.keyswitch(self.automorphism(ct[1], shift), nl, gk)
-        return torch.stack([add_mod(c0p, ks0, self._q(range(nl))), ks1])
+        c0, c1 = ct.unbind(-3)
+        c0p = self.automorphism(c0, shift)
+        ks0, ks1 = self.keyswitch(self.automorphism(c1, shift), nl, gk)
+        return _stack2(add_mod(c0p, ks0, self._q(range(nl))), ks1)
 
     def conjugate(self, ct, nl, ck):
         """Complex-conjugate the slots (automorphism X -> X^{-1})."""
-        ks0, ks1 = self.keyswitch(self.conj_apply(ct[1]), nl, ck)
-        return torch.stack([add_mod(self.conj_apply(ct[0]), ks0, self._q(range(nl))),
-                            ks1])
+        c0, c1 = ct.unbind(-3)
+        ks0, ks1 = self.keyswitch(self.conj_apply(c1), nl, ck)
+        return _stack2(add_mod(self.conj_apply(c0), ks0, self._q(range(nl))), ks1)
 
     # ------------------------------------------------- hoisted rotation bank
     def rotate_apply(self, digits, c0, nl, shifts, gks):
         """K rotations from the hoisted ModUp digits of c1 (σ commutes with
-        ModUp). shifts: K ints; gks: K keys. Returns int32 [K, 2, nl, N]."""
+        ModUp). shifts: K ints; gks: K keys. Returns int32 [K, ..., 2, nl,
+        N]: the rotation axis leads, so entry k is rotation k of the whole
+        batch."""
         q = self._q(range(nl))
         outs = []
         for shift, gk in zip(shifts, gks):
             acc0, acc1 = self._ks_inner(self.automorphism(digits, shift), nl, gk)
             b, a = self._mod_down_pair(acc0, acc1, nl)
-            outs.append(torch.stack(
-                [add_mod(self.automorphism(c0, shift), b, q), a]))
+            outs.append(_stack2(add_mod(self.automorphism(c0, shift), b, q), a))
         return torch.stack(outs)
 
     def rotate_batch(self, ct, nl, shifts, gks):
-        """K rotations of ONE ciphertext sharing a single ModUp of ct[1]
-        (Halevi-Shoup hoisting). Returns int32 [K, 2, nl, N]."""
-        return self.rotate_apply(self.modup(ct[1], nl), ct[0], nl, shifts, gks)
+        """K rotations of ONE ciphertext (or of each in a batch) sharing a
+        single ModUp of c1 (Halevi-Shoup hoisting). Returns int32 [K, ...,
+        2, nl, N], the rotation axis first."""
+        c0, c1 = ct.unbind(-3)
+        return self.rotate_apply(self.modup(c1, nl), c0, nl, shifts, gks)
 
     # ------------------------------------------------ fused conv bank (MAC)
     def rot_mac(self, ct, nl, shifts, gks, pts, extras=(), fold_rescale_rows=0,
@@ -317,14 +353,14 @@ class Evaluator:
         in the extended Q^{(nl)}P basis. pts: K int32 [nl + alpha, N]
         planes; extras: ciphertext addends at the product's (level, scale);
         plain_vals/plain_pts: keyswitch-free taps (mask times ciphertext).
-        Returns [2, nl - fold_rescale_rows, N]."""
+        Returns [..., 2, nl - fold_rescale_rows, N]."""
         k = len(shifts) if shifts is not None else 0
         if digits is None and k:
-            digits = self.modup(ct[1], nl)
+            digits = self.modup(ct[..., 1, :, :], nl)
         accs = None
         for i in range(k):
-            accs = self._rot_mac_tap(digits, ct[0], shifts[i], gks[i], pts[i],
-                                     nl, accs)
+            accs = self._rot_mac_tap(digits, ct[..., 0, :, :], shifts[i], gks[i],
+                                     pts[i], nl, accs)
         return self._rot_mac_fin(accs, plain_vals, plain_pts, extras, nl,
                                  fold_rescale_rows, extras_post)
 
@@ -353,11 +389,12 @@ class Evaluator:
         if accs is not None:
             rc, r0, r1 = accs
             b, a = self._mod_down_pair(r0, r1, nl)
-            out = torch.stack([add_mod(rc, b, q), a])
+            out = _stack2(add_mod(rc, b, q), a)
         if plain_vals:
-            vs = torch.stack(list(plain_vals)).to(torch.int64)   # [J, 2, nl, N]
+            vs = torch.stack(list(plain_vals)).to(torch.int64)   # [J, ..., 2, nl, N]
             ps = torch.stack(list(plain_pts)).to(torch.int64)    # [J, nl, N]
-            s = _sum_mod(vs * ps[:, None] % q, q)
+            ps = ps.reshape(ps.shape[:1] + (1,) * (vs.dim() - 3) + ps.shape[1:])
+            s = _sum_mod(vs * ps % q, q)
             out = s if out is None else add_mod(out, s, q)
         if not extras_post:
             for e in extras:

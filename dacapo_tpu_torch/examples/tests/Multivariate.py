@@ -9,9 +9,10 @@ from dacapo_tpu_torch.examples.benchmarks.Multivariate import trace
 PROFILE = "tpu_n14"
 
 
-def case(nt=4096):
-    """(inputs, golden, postprocess) of the run."""
-    rng = np.random.default_rng(100)
+def case(nt=4096, seed=100):
+    """(inputs, golden, postprocess) of the run; another seed draws another
+    input set (the batch rows of chip_smoke.py)."""
+    rng = np.random.default_rng(seed)
     X = [rng.uniform(-1, 1, nt) for _ in range(3)]
     Y = [X[0] + 0.5 * X[1] - X[2] + rng.uniform(-0.01, 0.01, nt)
          for _ in range(3)]

@@ -48,6 +48,14 @@ card (`load_seconds["capture"]`) and eagerly on the CPU; True does the same
 per op, as does every request after `setDebug(True)`.
 Unlike the JAX runner, a failed capture raises: no path falls back to
 per-op dispatch by itself.
+
+Batches (the reference's setInputBatch/runBatch): `setInputBatch(i, data
+[B, slots])` encrypts B rows of argument i, `runBatch()` runs them through
+the executor's batch path (vm/executor.py:run_encrypted_batch) and returns
+[B, results, slots] in full mode, None in server mode. On the card
+`precompile_batch(B)` after `load` captures the batch graphs (the oracle's
+and the segments') before the first batch
+(`load_seconds["batch_oracle_capture"]`, `["batch_capture"]`).
 """
 
 import json
@@ -132,6 +140,7 @@ class HEVM:
         self.executor = None
         self.prog = None
         self._arg_cts = {}
+        self._arg_cts_batch = {}
         self._out = None
         self._debug = False
 
@@ -265,6 +274,27 @@ class HEVM:
             parts.append("capture")
         self.load_seconds = dict(zip(parts, np.diff(laps).tolist()))
 
+    def precompile_batch(self, batch):
+        """Capture, on the card, the graphs of the batch path for `batch`
+        ciphertexts: the device oracle's, one per bootstrap cache key, and
+        one per segment window; load_seconds["batch_oracle_capture"] and
+        ["batch_capture"] get their seconds. A later batch of another size
+        captures its own at first use. Returns the number of segment graphs
+        (0 on the CPU, which runs the batch eagerly, and with jit=False)."""
+        if self.executor is None:
+            raise RuntimeError("load a program first")
+        if self.device.type != "cuda" or self.jit is False:
+            return 0
+        t0 = time.perf_counter()
+        if self.executor.capture_oracle(batch):
+            torch.cuda.synchronize(self.device)
+            self.load_seconds["batch_oracle_capture"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graphs = self.executor.precompile_segments(batch=batch)
+        torch.cuda.synchronize(self.device)
+        self.load_seconds["batch_capture"] = time.perf_counter() - t0
+        return graphs
+
     def loadClient(self, hevm_path):
         """Client mode: the program's header only (each argument's level and
         scale, the result registers); no constants, no executor (reference
@@ -280,6 +310,17 @@ class HEVM:
         scale = float(2.0 ** self.prog.arg_scale[i])
         ct = self.scheme.encrypt(np.asarray(data, dtype=np.float64), scale=scale, nl=nl)
         self._arg_cts[i] = (ct.data, nl, scale)
+
+    def setInputBatch(self, i, data):
+        """Encrypt a batch for argument i: data [B, slots], row by row in
+        the reference's order (the same draws as B setInput calls)."""
+        arr = np.asarray(data, dtype=np.float64)
+        if arr.ndim != 2:
+            raise ValueError(f"setInputBatch takes [B, slots], got shape {arr.shape}")
+        nl = (self.prog.arg_level[i] + 1) * self.scheme.ctx.config.rescale_rows
+        scale = float(2.0 ** self.prog.arg_scale[i])
+        cts = [self.scheme.encrypt(row, scale=scale, nl=nl).data for row in arr]
+        self._arg_cts_batch[i] = (torch.stack(cts), nl, scale)
 
     def getCtxt(self, i):
         """Serialized argument i (set by setInput or setCtxt), else result i
@@ -313,17 +354,26 @@ class HEVM:
         """Evaluate the program over the encrypted arguments. A full VM
         decrypts the results (getOutput); a server returns None and ships
         them with getOutputCtxt."""
+        return self._evaluate(self._arg_cts, "neither set (setInput) nor received (setCtxt)",
+                              lambda args: self.executor.run_encrypted(args, jit=self.jit))
+
+    def runBatch(self, mesh=None):
+        """Evaluate the program over the batches setInputBatch encrypted. A
+        full VM returns the decrypted [B, results, slots]; a server returns
+        None. mesh must be None: the mesh is not ported (one card)."""
+        return self._evaluate(self._arg_cts_batch, "not set (setInputBatch)",
+                              lambda args: self.executor.run_encrypted_batch(args, mesh=mesh))
+
+    def _evaluate(self, arg_cts, unset, execute):
         if self.mode == "client":
             raise RuntimeError("a client VM evaluates nothing")
         n_args = self.prog.arg_length
-        missing = [i for i in range(n_args) if i not in self._arg_cts]
+        missing = [i for i in range(n_args) if i not in arg_cts]
         if missing:
-            raise RuntimeError(f"arguments {missing} were neither set (setInput) nor "
-                               "received (setCtxt)")
+            raise RuntimeError(f"arguments {missing} were {unset}")
         keys = self.scheme.keys
         n_keys = (len(keys.galois), keys.conj is not None)
-        self.executor.run_encrypted([self._arg_cts[i] for i in range(n_args)],
-                                    jit=self.jit)
+        execute([arg_cts[i] for i in range(n_args)])
         if self.mode != "full":
             self._out = None
             return None

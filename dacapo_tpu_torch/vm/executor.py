@@ -1,6 +1,6 @@
 """HEVM executor: interprets the bytecode stream over the PyTorch crypto layer.
 
-Port of dacapo_tpu/vm/executor.py, two of its paths:
+Port of dacapo_tpu/vm/executor.py, three of its paths:
 
 * segment execution (`jit="auto"`, the default, or `"segment"`): the
   (SSA, fused) stream is cut into windows at bootstraps and every
@@ -15,6 +15,17 @@ Port of dacapo_tpu/vm/executor.py, two of its paths:
 * per-op dispatch (`jit=False`): one Evaluator call per (fused)
   instruction, the counterpart of the reference C++ VM dispatch loop
   (lib/Runtime/SEAL_HEVM.cpp:336-401).
+
+* the batch path (`run_encrypted_batch`, the reference's server-throughput
+  entry): B ciphertexts [B, 2, nl, N] per argument through the same segment
+  plan. The reference vmaps each window's function (`_seg_fn_batch`); here
+  every Evaluator op takes the batch whole (crypto/ops.py), so on the card
+  each window of at least SEGMENT_MIN_OPS ops is one CUDA graph over the
+  batch, captured for one batch size (`precompile_segments(batch=B)`) and
+  cached apart from the single-request graphs. A boot window refreshes the
+  batch: the oracle with `bootstrap_batch` (on the card one graph per cache
+  key and B, `capture_oracle(batch=B)`), the native bootstrap row by row,
+  eagerly, as the reference does. There is no mesh: one card.
 
 `jit=True` takes the segment path too. The JAX package compiles a program
 without bootstraps as one function there; that whole-program graph is not
@@ -31,9 +42,9 @@ compiled function): a graph bakes in the addresses of the resident galois
 keys and plaintexts, so sharing one would mean copying those into static
 buffers before every replay; the port keeps one graph per window.
 `_pt_ingraph`, `_seg_pt_groups`, `_seg_plains_arg` and `SYNC_EVERY` serve
-plaintext streaming and in-flight host uploads, and `_seg_fn_batch` the
-batch/mesh path: none exists in the port, where every plaintext and key is
-resident on the device (memory and batching, a later slice).
+plaintext streaming and in-flight host uploads, which do not exist in the
+port: every plaintext and key is resident on the device (the compact
+plaintext pool, ROADMAP A.7). The mesh (parallel/mesh.py) is not ported.
 
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
@@ -87,6 +98,7 @@ class HEVMExecutor:
         self._last_outputs = None
         self._seg_plan = None
         self._captured = None   # (what the graphs were captured for, {wi: graph})
+        self._captured_batch = None   # the same for one batch size
         self._segprof = False
         self.seg_profile = None
         self.capture_stats = None
@@ -156,20 +168,21 @@ class HEVMExecutor:
             self.bootstrapper.bootstrap(zero, nl, sc, target)
         return len(sigs)
 
-    def capture_oracle(self):
+    def capture_oracle(self, batch=None):
         """Capture the device oracle's CUDA graph of each distinct bootstrap
         of the program (one per cache key, crypto/bootstrap.py), as the
-        reference jits its oracle once per key. HEVM.load does this on the
-        card; a bootstrap captures its key's graph at first use otherwise.
-        Returns the number of graphs the oracle holds: 0 on the CPU, with
-        native bootstraps and on the host-RNG path."""
+        reference jits its oracle once per key; batch=B: the graphs over a
+        batch of B (the batch path's). HEVM.load does this on the card; a
+        bootstrap captures its key's graph at first use otherwise. Returns
+        the number of graphs the oracle holds: 0 on the CPU, with native
+        bootstraps and on the host-RNG path."""
         bs = self.bootstrapper
         if (self.s.device.type != "cuda" or not isinstance(bs, EmulatedBootstrapper)
                 or bs.host_rng):
             return 0
         for nl, sc, target in self._boot_signatures():
             if nl >= 2:
-                bs.capture(nl, sc, target)
+                bs.capture(nl, sc, target, batch)
         return len(bs._graphs)
 
     # ------------------------------------------------------------ preprocess
@@ -178,7 +191,8 @@ class HEVMExecutor:
         payload-identical encodes are deduplicated, device NTTs batched per
         level, and encode scales / upscale multipliers follow the scale
         steering solution (vm/steer.py)."""
-        self._captured = None     # the graphs read the plaintexts replaced here
+        # the graphs read the plaintexts replaced here
+        self._captured = self._captured_batch = None
         enc = self.s.encoder
         ctx = self.s.ctx
         alpha = ctx.config.alpha
@@ -342,7 +356,7 @@ class HEVMExecutor:
                         digits = hit[1]
                         dig_cache[dkey] = dig_cache.pop(dkey)  # LRU touch
                     else:
-                        digits = ev.modup(src[1], nl)
+                        digits = ev.modup(src[..., 1, :, :], nl)
                         if len(dig_cache) >= 8:
                             dig_cache.pop(next(iter(dig_cache)))
                         dig_cache[dkey] = (src, digits)
@@ -637,51 +651,59 @@ class HEVMExecutor:
                  float(2.0 ** self.prog.arg_scale[i]))
                 for i in range(self.prog.arg_length)]
 
-    def precompile_segments(self, arg_meta=None):
+    def precompile_segments(self, arg_meta=None, batch=None):
         """Capture every window of the segment plan as a CUDA graph before
         the first request, as the JAX package compiles them here. arg_meta:
-        [(nl, scale)] per argument, by default the compiled ones. Returns
-        the number of graphs: 0 on the CPU, where the plan runs eagerly.
+        [(nl, scale)] per argument, by default the compiled ones; batch=B:
+        the graphs of the batch path over B ciphertexts (held apart from
+        the single-request graphs, one batch size at a time). Returns the
+        number of graphs: 0 on the CPU, where the plan runs eagerly.
         Raises if a capture fails or the galois keys are not resident."""
-        return len(self._graphs(arg_meta or self._arg_meta()))
+        return len(self._graphs(arg_meta or self._arg_meta(), batch))
 
-    def _graphs(self, arg_meta):
+    def _graphs(self, arg_meta, batch=None):
         """{window index: graph record} of the segment plan for arguments of
-        this metadata ({} on the CPU). The graphs are captured at first use
-        and again whenever the key set or a device key tensor changed since
+        this metadata and batch size (None: a single request; {} on the
+        CPU). The graphs are captured at first use and again whenever the
+        key set or a device key tensor changed since
         (GaloisStore.generation): a graph reads the keys at the addresses
         it was captured with."""
         if self.s.device.type != "cuda":
             return {}
+        slot = "_captured" if batch is None else "_captured_batch"
         keys = self.s.keys
         if keys.galois.budget is not None:
-            self._captured = None
+            self._captured = self._captured_batch = None
             raise RuntimeError(
                 "galois keys are streamed from host memory under a device budget, "
                 "and a CUDA graph bakes in their addresses: run with jit=False")
-        meta = tuple(tuple(m) for m in arg_meta)
-        hit = self._captured
+        meta = (tuple(tuple(m) for m in arg_meta), batch)
+        hit = getattr(self, slot)
         if (hit is not None and hit[0] == meta and hit[1] is keys
                 and hit[2] is keys.galois and hit[3] == keys.galois.generation):
             return hit[4]
-        self._captured = None                 # free the old graphs first
-        graphs = self._capture(self._segment_plan(), arg_meta)
+        setattr(self, slot, None)             # free the old graphs first
+        plan = self._segment_plan()
+        graphs = (self._capture(plan, arg_meta) if batch is None
+                  else self._capture(plan, arg_meta, batch))
         # the key objects themselves (not ids): held here, they outlive the
         # graphs that read them
-        self._captured = (meta, keys, keys.galois, keys.galois.generation, graphs)
+        setattr(self, slot, (meta, keys, keys.galois, keys.galois.generation, graphs))
         return graphs
 
-    def _capture(self, plan, arg_meta):
+    def _capture(self, plan, arg_meta, batch=None):
         """Capture walk over the plan with _meta_step: one graph for every
         window of at least SEGMENT_MIN_OPS ops, all in one memory pool and
         in plan order (the replays keep that order, which is what lets the
         graphs share the pool). A register an earlier graph writes is read
         at that graph's static output; every other input (an argument, an
-        oracle or eager-window output) gets a zeroed static buffer that the
-        replay copies into. Nothing random is drawn: the MLP's first
-        request stays bit-equal to the JAX package's."""
+        oracle or eager-window output) gets a zeroed static buffer, [B, 2,
+        nl, N] for a batch of B, that the replay copies into. Nothing random
+        is drawn: the MLP's first request stays bit-equal to the JAX
+        package's."""
         dev = self.s.device
         n = self.s.ctx.n
+        lead = () if batch is None else (batch,)
         meta = dict(enumerate(arg_meta))
         graph_out = {}        # register -> static output of an earlier graph
         stream = torch.cuda.Stream(dev)
@@ -690,7 +712,8 @@ class HEVMExecutor:
         for wi, info in enumerate(plan):
             if info["kind"] == "seg" and len(info["ops"]) >= self.SEGMENT_MIN_OPS:
                 ins = [graph_out[r] if r in graph_out else
-                       torch.zeros((2, meta[r][0], n), dtype=torch.int32, device=dev)
+                       torch.zeros(lead + (2, meta[r][0], n), dtype=torch.int32,
+                                   device=dev)
                        for r in info["ins"]]
                 rec = graphs[wi] = self._seg_graph(
                     info, {r: meta[r] for r in info["ins"]}, ins, stream, pool)
@@ -699,9 +722,13 @@ class HEVMExecutor:
                 self._meta_step(op, meta)
             for r in info["dead"]:
                 graph_out.pop(r, None)
-        self.capture_stats = dict(
+        stats = dict(
             windows=len(plan), graphs=len(graphs),
             **{k: sum(g[k] for g in graphs.values()) for k in ("warmup_s", "capture_s")})
+        if batch is None:
+            self.capture_stats = stats
+        else:
+            self.batch_capture_stats = dict(stats, batch=batch)
         return graphs
 
     def _seg_graph(self, info, in_meta, ins, stream, pool):
@@ -728,15 +755,16 @@ class HEVMExecutor:
         t2 = time.perf_counter()
         return dict(graph=graph, ins=ins, outs=outs, warmup_s=t1 - t0, capture_s=t2 - t1)
 
-    def _run_segmented(self, arg_cts):
+    def _run_segmented(self, arg_cts, batch=None):
         """Replay walk: per window, the bootstrap (boot: the device oracle
         replays its graph and returns a copy of the output), an eager _exec_stream
         (no graph: tiny windows, and every window on the CPU), or: copy each
         input that is not already the graph's own static input in, replay,
         and bind the static outputs. Returns copies of the outputs, since the
-        next replay overwrites a graph's outputs."""
+        next replay overwrites a graph's outputs. batch=B: every register
+        holds B ciphertexts, and the batch graphs replay."""
         plan = self._segment_plan()
-        graphs = self._graphs([(nl, sc) for _, nl, sc in arg_cts])
+        graphs = self._graphs([(nl, sc) for _, nl, sc in arg_cts], batch)
         ciphers, meta = {}, {}
         for i, (data, nl, scale) in enumerate(arg_cts):
             ciphers[i] = data
@@ -748,8 +776,8 @@ class HEVMExecutor:
             if info["kind"] == "boot":
                 op = info["ops"][0]
                 nl, sc = meta[op.lhs]
-                ciphers[op.dst], meta[op.dst] = self.bootstrapper.bootstrap(
-                    ciphers[op.lhs], nl, sc, op.rhs)
+                ciphers[op.dst], meta[op.dst] = self._bootstrap(
+                    ciphers[op.lhs], nl, sc, op.rhs, batch)
                 kind = "boot"
             elif rec is None:
                 self._exec_stream(info["ops"], ciphers, meta, info["outs"])
@@ -774,6 +802,16 @@ class HEVMExecutor:
         self.seg_profile = prof
         return ([ciphers[r].clone() for r in self.res_dst],
                 [meta[r] for r in self.res_dst])
+
+    def _bootstrap(self, data, nl, sc, target, batch):
+        """A boot window: one bootstrap, or one refresh of a batch (the
+        oracle's bootstrap_batch; the native bootstrap row by row, as in
+        the reference)."""
+        bs = self.bootstrapper
+        if batch is None or isinstance(bs, EmulatedBootstrapper):
+            return bs.bootstrap(data, nl, sc, target)
+        rows = [bs.bootstrap(data[b], nl, sc, target) for b in range(batch)]
+        return torch.stack([r[0] for r in rows]), rows[0][1]
 
     def set_profiling(self, flag=True):
         """Per-window wall time of the segment path, with a synchronize after
@@ -838,6 +876,25 @@ class HEVMExecutor:
         self._last_outputs = outs
         return outs
 
+    def run_encrypted_batch(self, arg_cts, mesh=None):
+        """Batched server entry (the reference's run_encrypted_batch with
+        mesh=None): arg_cts = [(data [B, 2, nl, N], nl, scale)], the same B
+        for every argument. Walks the segment plan over the batch (module
+        docstring): on the card as the batch graphs of B, captured at first
+        use unless precompile_segments(batch=B) ran; on the CPU eagerly.
+        Leaves (outs [each [B, 2, nl, N]], out_meta) in _last_outputs and
+        returns them."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "the mesh (parallel/mesh.py, ROADMAP A.14) is not ported: "
+                "run_encrypted_batch runs on one device, with mesh=None")
+        sizes = {int(data.shape[0]) for data, _, _ in arg_cts}
+        if len(sizes) != 1 or any(data.dim() != 4 for data, _, _ in arg_cts):
+            raise ValueError("every argument must be a batch [B, 2, nl, N] of one B, got "
+                             f"{[tuple(data.shape) for data, _, _ in arg_cts]}")
+        self._last_outputs = self._run_segmented(arg_cts, batch=sizes.pop())
+        return self._last_outputs
+
     def _run_trace(self, arg_cts):
         ciphers, meta = {}, {}
         for i, (data, nl, scale) in enumerate(arg_cts):
@@ -847,6 +904,13 @@ class HEVMExecutor:
         return outs, [meta[r] for r in self.res_dst]
 
     def decrypt_outputs(self):
+        """The last request's results, decrypted: [results, slots], or [B,
+        results, slots] after run_encrypted_batch."""
         outs, out_meta = self._last_outputs
+        if outs and outs[0].dim() == 4:
+            return np.stack([
+                np.stack([self.s.decrypt(Ciphertext(data[b], sc))
+                          for data, (nl, sc) in zip(outs, out_meta)])
+                for b in range(outs[0].shape[0])])
         return np.stack([self.s.decrypt(Ciphertext(data, sc))
                          for data, (nl, sc) in zip(outs, out_meta)])

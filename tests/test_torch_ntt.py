@@ -291,7 +291,7 @@ def test_launches_in_profile():
     """NTT calls counted from a trace's kernel names (how the kernels that
     run inside CUDA graphs are counted): one pass-A kernel per call, pass B
     equal, host rows ignored, a trace with unequal passes refused."""
-    from dacapo_tpu_torch.crypto.cuda.ntt_kernel import launches_in_profile
+    from dacapo_tpu_torch.crypto.cuda.ntt_kernel import TraceLossError, launches_in_profile
     name = "void (anonymous namespace)::ntt_pass<{}, {}, {}>(unsigned int const*, unsigned int*)"
     rows = [_TraceRow(name.format(15, "false", "false"), 7),
             _TraceRow(name.format(15, "true", "false"), 7),
@@ -303,5 +303,5 @@ def test_launches_in_profile():
             _TraceRow("cudaGraphLaunch", 4, "DeviceType.CPU")]
     assert launches_in_profile(rows) == {"ntt_fwd_cuda": 7, "ntt_inv_cuda": 5}
     assert launches_in_profile([]) == {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
-    with pytest.raises(RuntimeError, match="pass-A"):
+    with pytest.raises(TraceLossError, match="pass-A"):
         launches_in_profile(rows[:1])
