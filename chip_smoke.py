@@ -58,7 +58,19 @@
    100-103 (setInputBatch, runBatch), every row's RMS held to the same bar,
    19 batched oracle graph replays and no plain NTT call in each, and one
    profiled batch request; seconds a batch and a ciphertext beside the B=1
-   median, capture seconds and peak device memory;
+   median, capture seconds and peak device memory; then, the resident VM
+   freed, the streaming part: a second HEVM("tpu_n15") on the same keyset
+   and the same traced files under the JAX package's 16 GiB plan
+   (DACAPO_TPU_HBM_BYTES = 2^34) must stream its plaintexts (the compact
+   pool; its galois keys stay resident); its load captures the segment
+   graphs, each decoding its plaintexts in-graph, and one oracle graph;
+   three timed requests held to the same bar, 19 oracle replays, no plain
+   NTT and no capture each; the resident VM's second request (argument and
+   oracle draws restored) gives the resident VM's output ciphertexts on the
+   segment path and per-op through the LRU; one request profiled, and the
+   decode of one request profiled alone (device time, NTT and the rest
+   apart); pool bytes against resident plaintext bytes, both VMs' peaks;
+   the earlier phases' VMs must all stay resident (streaming: false);
 8. runs Scheme("tpu_n16", seed=5) on the card: keygen, encrypt two vectors,
    mul (relinearise), rescale, decrypt; checks the RMS against a*b, the
    output ciphertext bit-equal to the same calls with device="cpu", and that
@@ -92,11 +104,16 @@
     captured, three timed batch requests and a profiled one): every row's
     output ciphertexts byte-equal to a single request's on the same argument
     ciphertexts, every row's RMS <= 2e-5, seconds a batch and a ciphertext
-    beside the single requests' in the same run;
+    beside the single requests' in the same run; then the same batch on a
+    second HEVM forced to stream (a plaintext budget of half its plaintext
+    bytes): its batch graphs decode in-graph and its rows must equal the
+    resident batch's byte for byte, one request profiled;
 11. the NTT at every batch size the two batch paths launched (recorded by
     wrapping the Evaluator's kernel call over each batch capture and first
-    request), bit-equal to the plain NTT in both modes, the largest timed
-    against its bound;
+    request) and at every batch size the two streaming parts' plaintext
+    decodes launched (recorded by wrapping the Evaluator's decode),
+    bit-equal to the plain NTT in both modes, the largest timed against its
+    bound;
 12. the profile phase: runtime/profiler.py's tpu_n14 latency table (CUDA
     events) into OUT_DIR, read back by ir/config.load_profile, every
     row positive and nondecreasing;
@@ -145,6 +162,9 @@ N_TIMED = 25
 RESNET_BATCH = 4               # ciphertexts a ResNet batch request carries
 BASIC_BATCH = 8                # and a Multivariate one
 BASIC_BATCH_ROW = "Multivariate"
+# the JAX package's 16 GiB assumption (vm/executor.py), under which its
+# ResNet-20 streamed its plaintexts: 12 % of it is the plaintext budget
+STREAM_HBM_BYTES = 16 << 30
 
 
 def log(*a):
@@ -558,6 +578,9 @@ def serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params, keydir, files):
     mark("load", t0)
     ex = vm.executor
     cap = ex.capture_stats
+    phases["streaming"] = ex.streaming
+    if ex.streaming:
+        raise AssertionError("the MLP streams its plaintexts under the card's default budget")
     log(f"[mlp] load captured {cap['graphs']} graphs of {cap['windows']} windows in "
         f"{vm.load_seconds['capture']:.3f} s (warm-up {cap['warmup_s']:.3f}, capture and "
         f"instantiate {cap['capture_s']:.3f} s)")
@@ -703,10 +726,11 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     vm.load(cst, os.path.join(RESNET_ART, "ResNet.hevm"))
     out["load_s"] = time.perf_counter() - t0
     out["load_parts_s"] = vm.load_seconds
-    shutil.rmtree(RESNET_TRACE)
     ex = vm.executor
+    if ex.streaming:
+        raise AssertionError("ResNet streams its plaintexts under the card's default budget")
     out.update(instructions=len(vm.prog.ops), unique_plaintexts=ex.n_plains,
-               plaintext_bytes=ex.plain_bytes, galois_keys=ex.n_keys,
+               streaming=ex.streaming, plaintext_bytes=ex.plain_bytes, galois_keys=ex.n_keys,
                galois_key_bytes=ex.key_bytes,
                after_load_bytes=torch.cuda.memory_allocated())
     cap = out["capture"] = ex.capture_stats
@@ -774,6 +798,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
             raise AssertionError(f"the plain NTT ran on the ResNet path: {r}")
         if i == 1:
             kept_state, kept_outs = state, ex._last_outputs[0]
+            kept_args = [vm._arg_cts[0]]
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
 
@@ -841,7 +866,16 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         raise AssertionError(f"the plain NTT ran on the ResNet path: {prof['plain_ntt_calls']}")
     out["batch"] = resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod,
                                 out["request_median_s"])
-    return out, launches
+    # what the streaming part holds its VM to: the second request's argument,
+    # oracle draws and outputs, and the resident VM's numbers
+    resident = dict(cst=cst, args=kept_args, oracle_state=kept_state[1], outs=kept_outs,
+                    packed=packed, want=want, expected=expected, graphs=cap["graphs"],
+                    oracle_graphs=oracle["graphs"], plaintext_bytes=ex.plain_bytes,
+                    request_median_s=out["request_median_s"],
+                    peak_bytes=max(r["peak_bytes"] for r in requests),
+                    peak_load_bytes=out["peak_load_bytes"],
+                    busy_s=prof["device_busy_s"])
+    return out, launches, resident
 
 
 def resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod, single_median_s):
@@ -941,6 +975,185 @@ def resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod, single_med
         raise AssertionError(f"the profiled ResNet batch: NTT {prof['ntt_launches']}, plain "
                              f"{prof['plain_ntt_calls']}")
     return out
+
+
+class DecodeShapes:
+    """The NTT batch sizes (plaintexts x rows) of every plaintext decode one
+    Evaluator runs between start() and stop(), the graphs' warm-ups and the
+    LRU's eager decodes alike, in `sizes`. It wraps the Evaluator's
+    _decode_plain and counts nothing."""
+
+    def __init__(self, ev):
+        self.ev, self.sizes = ev, set()
+
+    def start(self):
+        decode = type(self.ev)._decode_plain
+
+        def recorded(lohi, rows):
+            self.sizes.add(int(lohi.shape[0]) * len(rows))
+            return decode(self.ev, lohi, rows)
+
+        self.ev._decode_plain = recorded
+
+    def stop(self):
+        self.ev.__dict__.pop("_decode_plain", None)
+
+
+def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
+    """ResNet-20 under the JAX package's 16 GiB memory plan: a second
+    HEVM("tpu_n15") on the same keyset, built with DACAPO_TPU_HBM_BYTES =
+    STREAM_HBM_BYTES, loads the same traced .cst and .hevm after the
+    resident VM is gone. Its plaintexts must stream (the compact pool) with
+    its galois keys resident; the load captures the segment graphs, each
+    decoding its plaintexts in-graph, and one oracle graph. Three timed
+    requests are held to the RMS bar, 19 oracle replays, no plain NTT and no
+    capture each; the resident VM's second request (argument and oracle
+    draws restored) must give the same ciphertexts on the segment path and
+    per-op through the LRU; one request is profiled, and the decode of every
+    graph window of one request is profiled alone (its device time, NTT and
+    the rest apart). Returns (results, NTT calls of the profiled request,
+    the NTT batch sizes the decodes launched)."""
+    from dacapo_tpu_torch.models import cnn_he
+    expected, want, packed = resident["expected"], resident["want"], resident["packed"]
+    out = dict(hbm_bytes=STREAM_HBM_BYTES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["allocated_before_bytes"] = torch.cuda.memory_allocated()
+    os.environ["DACAPO_TPU_HBM_BYTES"] = str(STREAM_HBM_BYTES)
+    try:
+        t0 = time.perf_counter()
+        vm = HEVM("tpu_n15", keyset_dir=keydir)
+        torch.cuda.synchronize()
+        out["keyset_load_s"] = time.perf_counter() - t0
+        shapes = DecodeShapes(vm.scheme.ev)
+        shapes.start()
+        t0 = time.perf_counter()
+        vm.load(resident["cst"], os.path.join(RESNET_ART, "ResNet.hevm"))
+        out["load_s"] = time.perf_counter() - t0
+    finally:
+        del os.environ["DACAPO_TPU_HBM_BYTES"]
+    shutil.rmtree(RESNET_TRACE)
+    ex, bs = vm.executor, vm.executor.bootstrapper
+    cap = out["capture"] = ex.capture_stats
+    out.update(load_parts_s=vm.load_seconds, streaming=ex.streaming, pool_bytes=ex.pool_bytes,
+               plain_bytes=ex.plain_bytes, plaintext_budget_bytes=ex._pt_budget,
+               resident_plaintext_bytes=resident["plaintext_bytes"],
+               galois_key_bytes=ex.key_bytes, key_budget=vm.scheme.keys.galois.budget,
+               oracle_graphs=len(bs._graphs), after_load_bytes=torch.cuda.memory_allocated(),
+               peak_load_bytes=torch.cuda.max_memory_allocated())
+    log(f"[resnet stream] DACAPO_TPU_HBM_BYTES={STREAM_HBM_BYTES}: streaming {ex.streaming}, "
+        f"compact pool {ex.pool_bytes} bytes for {ex.n_plains} plaintexts (resident planes "
+        f"{resident['plaintext_bytes']} bytes in the resident VM, budget {ex._pt_budget}); "
+        f"galois keys {ex.key_bytes} bytes, key budget {out['key_budget']}; keyset load "
+        f"{out['keyset_load_s']:.3f} s, load {out['load_s']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in vm.load_seconds.items())
+        + f"); {cap['graphs']} graphs of {cap['windows']} windows decode {cap['decode_rows']} "
+        f"rows a request in-graph (largest window {cap['decode_max_bytes']} bytes), "
+        f"{out['oracle_graphs']} oracle graphs; {out['after_load_bytes']} bytes allocated "
+        f"after load, peak {out['peak_load_bytes']}")
+    if not ex.streaming or "compact_encode" not in vm.load_seconds:
+        raise AssertionError("ResNet did not stream its plaintexts under the 16 GiB plan")
+    if out["key_budget"] is not None:
+        raise AssertionError("the 16 GiB plan put the galois keys under a budget")
+    if cap["graphs"] != resident["graphs"] or out["oracle_graphs"] != resident["oracle_graphs"]:
+        raise AssertionError(f"the streaming load captured {cap['graphs']} segment and "
+                             f"{out['oracle_graphs']} oracle graphs, the resident one "
+                             f"{resident['graphs']} and {resident['oracle_graphs']}")
+
+    requests = []
+    graphs = ex._captured
+    for i in range(3):
+        reset_counts(nk, ntt_mod)
+        bs.calls = 0
+        replays0 = bs.replays
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vm.setInput(0, packed)
+        vm.run()
+        res = vm.getOutput()
+        torch.cuda.synchronize()
+        r = dict(request_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
+                 plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls,
+                 oracle_replays=bs.replays - replays0,
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        logits = cnn_he.resnet_postprocess(res[0])
+        r["rms"] = float(np.sqrt(np.mean((logits - want) ** 2)))
+        requests.append(r)
+        log(f"[resnet stream] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
+            f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps ({r['oracle_replays']} "
+            f"oracle graph replays), NTT launches outside graphs {r['eager_ntt_launches']}, "
+            f"plain NTT calls {r['plain_ntt_calls']}, peak {r['peak_bytes']} bytes")
+        if logits.shape != (10,) or not np.isfinite(logits).all():
+            raise AssertionError(f"bad ResNet output {logits!r}")
+        if not r["rms"] <= RMS_BAR_RESNET:
+            raise AssertionError(f"streaming ResNet rms {r['rms']} > {RMS_BAR_RESNET}")
+        if not r["bootstraps"] == r["oracle_replays"] == expected["bootstraps"]:
+            raise AssertionError(f"{r['bootstraps']} bootstraps ran ({r['oracle_replays']} "
+                                 f"oracle replays), the program has {expected['bootstraps']}")
+        if any(r["plain_ntt_calls"].values()):
+            raise AssertionError(f"the plain NTT ran on the streaming ResNet path: {r}")
+        if ex._captured is not graphs or len(bs._graphs) != out["oracle_graphs"]:
+            raise AssertionError("a streaming request captured graphs the load did not")
+    out["requests"] = requests
+    out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
+    out["resident_request_median_s"] = resident["request_median_s"]
+    out["peak_bytes"] = max(r["peak_bytes"] for r in requests)
+    out["resident_peak_bytes"] = resident["peak_bytes"]
+    out["resident_peak_load_bytes"] = resident["peak_load_bytes"]
+
+    # the resident VM's second request, its argument and oracle draws
+    # restored: the segment path (in-graph decode), then per-op (the LRU)
+    for path, jit in (("segment", "auto"), ("per_op", False)):
+        bs.gen.set_state(resident["oracle_state"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = ex.run_encrypted(resident["args"], jit=jit)
+        torch.cuda.synchronize()
+        out[f"{path}_rerun_s"] = time.perf_counter() - t0
+        out[f"{path}_equals_resident"] = all(
+            torch.equal(a, b) for a, b in zip(got, resident["outs"]))
+        log(f"[resnet stream] the resident VM's second request, {path} "
+            f"{out[f'{path}_rerun_s']:.3f} s: output ciphertexts bit-equal to the resident "
+            f"VM's {out[f'{path}_equals_resident']}")
+        if not out[f"{path}_equals_resident"]:
+            raise AssertionError(f"the streaming VM's {path} outputs differ from the "
+                                 "resident VM's")
+    out["lru"] = dict(entries=len(ex._pt_dev), device_bytes=ex._pt_dev_bytes,
+                      budget=ex._pt_budget)
+    shapes.stop()
+
+    def request():
+        vm.setInput(0, packed)
+        vm.run()
+
+    prof = out["profiled_request"] = profile_request(torch, request, "resnet stream", ex, nk,
+                                                     ntt_mod, cpu=False)
+    launches = prof["ntt_launches"]
+    if min(launches.values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+        raise AssertionError(f"the profiled streaming request: NTT {launches}, plain "
+                             f"{prof['plain_ntt_calls']}")
+    out["resident_busy_s"] = resident["busy_s"]
+
+    # the decode of one request alone: every graph window's groups, as the
+    # graphs run them
+    def decode_all():
+        for wi in sorted(ex._captured[-1]):
+            for rows, _, idx in ex._pt_groups[wi]:
+                ex.ev._decode_plain(ex._pt_pool[idx], rows)
+
+    dec = profile_request(torch, decode_all, "resnet decode", ex, nk, ntt_mod, cpu=False)
+    out["decode"] = dict(
+        rows=cap["decode_rows"], device_busy_s=dec["device_busy_s"],
+        ntt_s=dec["ntt_kernel_s"], other_s=dec["device_busy_s"] - dec["ntt_kernel_s"],
+        ntt_launches=dec["ntt_launches"], wall_s=dec["wall_s"], by_kernel=dec["by_kernel"][:12])
+    log(f"[resnet stream] median {out['request_median_s']:.3f} s against the resident "
+        f"{resident['request_median_s']:.3f} s; device busy {prof['device_busy_s']:.4f} s "
+        f"against {resident['busy_s']:.4f} s; the decode of one request alone "
+        f"({cap['decode_rows']} rows): {dec['device_busy_s']:.4f} s of device time, NTT "
+        f"{dec['ntt_kernel_s']:.4f} s, the rest (gathers, int64 elementwise, orbit order) "
+        f"{out['decode']['other_s']:.4f} s; peak {out['peak_bytes']} bytes against the "
+        f"resident {resident['peak_bytes']}; decode NTT sizes {sorted(shapes.sizes)}")
+    return out, launches, sorted(shapes.sizes)
 
 
 def scheme_n16(np, torch, Scheme, nk, ntt_mod, params):
@@ -1048,8 +1261,11 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
                key_bytes_counted=ex.key_bytes, galois_keys_made=len(keys.galois),
                bootstrap_rotation_keys=len(bs.rotation_steps()),
                conj_key=keys.conj is not None, capture=ex.capture_stats,
-               after_load_bytes=torch.cuda.memory_allocated(),
+               streaming=ex.streaming, after_load_bytes=torch.cuda.memory_allocated(),
                peak_load_bytes=torch.cuda.max_memory_allocated())
+    if ex.streaming:
+        raise AssertionError("the deep program streams its plaintexts under the card's "
+                             "default budget")
     log(f"[native] keygen {out['keygen_s']:.3f} s; load {out['load_s']:.3f} s: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in vm.load_seconds.items()))
     log(f"[native] {out['instructions']} instructions; galois keys {len(keys.galois)} made "
@@ -1309,8 +1525,12 @@ def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
         r["full_equals_server"] = [full.getOutputCtxt(j) for j in range(
             full.prog.res_length)] == res_blobs
         r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["streaming"] = full.executor.streaming or server.executor.streaming
+        if r["streaming"]:
+            raise AssertionError(f"{name} streams its plaintexts under the card's default budget")
         if name == BASIC_BATCH_ROW:
-            r["batch"] = basic_batch(np, torch, full, test, row["nt"], nk, ntt_mod)
+            r["batch"] = basic_batch(np, torch, HEVM, full, test, row["nt"], nk, ntt_mod,
+                                     keydir, cst, hevm)
             batch_launches = r["batch"]["profiled_request"]["ntt_launches"]
         log(f"[basic] {name} ({profile}, {row['pipeline']}/{row['waterline']}): .hevm "
             f"{r['hevm_sha256'][:16]}... equal to the JAX package's; keygen "
@@ -1340,7 +1560,7 @@ def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
     return out, launches, batch_launches
 
 
-def basic_batch(np, torch, full, test, nt, nk, ntt_mod):
+def basic_batch(np, torch, HEVM, full, test, nt, nk, ntt_mod, keydir, cst, hevm):
     """The batch part of the basic phase, on the row's full HEVM (loaded,
     its keys made): BASIC_BATCH input sets (examples/tests/<Name>.py's case
     with seeds 100.., so row 0 is the phase's own input) encrypted by
@@ -1349,7 +1569,8 @@ def basic_batch(np, torch, full, test, nt, nk, ntt_mod):
     server's work); every row's output ciphertexts must equal a single
     request's on the same argument ciphertexts byte for byte, and runBatch's
     decrypted rows the numpy golden (RMS <= RMS_BAR_BASIC). The singles are
-    timed too, for the comparison in the same run."""
+    timed too, for the comparison in the same run. Then the same batch on a
+    streaming HEVM (`basic_batch_streamed`)."""
     ex, nb = full.executor, BASIC_BATCH
     cases = [test.case(nt=nt, seed=100 + b) for b in range(nb)]
     for i in range(len(cases[0][0])):
@@ -1415,6 +1636,64 @@ def basic_batch(np, torch, full, test, nt, nk, ntt_mod):
     if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
         raise AssertionError(f"the profiled basic batch: NTT {prof['ntt_launches']}, plain "
                              f"{prof['plain_ntt_calls']}")
+    out["streamed"] = basic_batch_streamed(torch, HEVM, full.profile, keydir, cst, hevm, args,
+                                           outs, meta, nk, ntt_mod)
+    return out
+
+
+def basic_batch_streamed(torch, HEVM, profile, keydir, cst, hevm, args, outs, meta, nk,
+                         ntt_mod):
+    """The basic batch on a streaming HEVM: a second VM on the row's keyset
+    loads the program, and its executor is preprocessed again under a
+    plaintext budget of half its plaintext bytes (the row's galois keys
+    outweigh its plaintexts 15 to 1, so no DACAPO_TPU_HBM_BYTES streams the
+    plaintexts without also budgeting the keys, which refuses graphs). Its
+    batch graphs of BASIC_BATCH, which decode in-graph, must give the
+    resident batch's output ciphertexts byte for byte; one request timed,
+    one profiled."""
+    vm = HEVM(profile, keyset_dir=keydir)
+    vm.load(cst, hevm)
+    ex = vm.executor
+    resident_bytes = ex.plain_bytes
+    ex._pt_budget = resident_bytes // 2
+    ex.preprocess()
+    if not ex.streaming:
+        raise AssertionError(f"{BASIC_BATCH_ROW} did not stream under a budget of half its "
+                             "plaintext bytes")
+    shapes = DecodeShapes(vm.scheme.ev)
+    shapes.start()
+    try:
+        t0 = time.perf_counter()
+        graphs = vm.precompile_batch(BASIC_BATCH)
+        capture_s = time.perf_counter() - t0
+        reset_counts(nk, ntt_mod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, got_meta = ex.run_encrypted_batch(args)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+    finally:
+        shapes.stop()
+    equal = got_meta == meta and all(torch.equal(a, b) for a, b in zip(got, outs))
+    out = dict(resident_plaintext_bytes=resident_bytes, plaintext_budget_bytes=ex._pt_budget,
+               pool_bytes=ex.pool_bytes, graphs=graphs, capture_s=capture_s,
+               capture=ex.batch_capture_stats, batch_s=batch_s,
+               plain_ntt_calls=dict(ntt_mod.CALLS), rows_equal_resident=equal,
+               decode_ntt_sizes=sorted(shapes.sizes))
+    prof = out["profiled_request"] = profile_request(
+        torch, lambda: ex.run_encrypted_batch(args), f"basic {BASIC_BATCH_ROW} streamed batch",
+        ex, nk, ntt_mod, cpu=False)
+    log(f"[basic batch] streamed: compact pool {ex.pool_bytes} bytes (resident "
+        f"{resident_bytes}, budget {ex._pt_budget}); capture {capture_s:.3f} s ({graphs} "
+        f"graphs, {out['capture']['decode_rows']} rows decoded in-graph a request); a batch "
+        f"{batch_s:.4f} s; rows byte-equal to the resident batch: {equal}; NTT calls on the "
+        f"device {prof['ntt_launches']}; decode NTT sizes {out['decode_ntt_sizes']}")
+    if not equal:
+        raise AssertionError(f"{BASIC_BATCH_ROW}: the streamed batch differs from the resident")
+    if not graphs or any(out["plain_ntt_calls"].values()) or any(
+            prof["plain_ntt_calls"].values()) or min(prof["ntt_launches"].values()) <= 0:
+        raise AssertionError(f"the streamed basic batch: {graphs} graphs, NTT "
+                             f"{prof['ntt_launches']}, plain {out['plain_ntt_calls']}")
     return out
 
 
@@ -1510,8 +1789,12 @@ def main():
     with tempfile.TemporaryDirectory(prefix="hevm_keys_") as keydir:
         report["mlp"], by_path["mlp_tpu_n15"], report["rms"] = timed(
             "mlp", serve_mlp, np, torch, HEVM, mlp, nk, ntt_mod, params, keydir, files)
-        report["resnet"], by_path["resnet_tpu_n15_request"] = timed(
+        report["resnet"], by_path["resnet_tpu_n15_request"], resident = timed(
             "resnet", serve_resnet, np, torch, HEVM, nk, ntt_mod, keydir)
+        report["resnet_streaming"], by_path["resnet_streaming_tpu_n15_request"], \
+            resnet_decode_sizes = timed("resnet_streaming", serve_resnet_streaming, np, torch,
+                                        HEVM, nk, ntt_mod, keydir, resident)
+        del resident
     resnet_batch_out = report["resnet"]["batch"]
     by_path[f"resnet_tpu_n15_batch{RESNET_BATCH}_request"] = \
         resnet_batch_out["profiled_request"]["ntt_launches"]
@@ -1534,19 +1817,28 @@ def main():
             os.path.join(work.name, "basic"))
     # the NTT at every batch size the two batch paths launched
     basic_batch_out = report["basic"][BASIC_BATCH_ROW]["batch"]
+    by_path[f"basic_{BASIC_BATCH_ROW}_streamed_batch{BASIC_BATCH}_request"] = \
+        basic_batch_out["streamed"]["profiled_request"]["ntt_launches"]
+    # and every batch size the plaintext decodes launched
     report["ntt_batch"] = timed("batch_kernel_checks", lambda: {
         f"resnet_tpu_n15_B{RESNET_BATCH}": batch_kernel_checks(
             torch, params, ntt_mod, nk, "tpu_n15", resnet_batch_out["ntt_batch_sizes"],
             f"ResNet B={RESNET_BATCH}"),
         f"{BASIC_BATCH_ROW}_tpu_n14_B{BASIC_BATCH}": batch_kernel_checks(
             torch, params, ntt_mod, nk, "tpu_n14", basic_batch_out["ntt_batch_sizes"],
-            f"{BASIC_BATCH_ROW} B={BASIC_BATCH}")})
+            f"{BASIC_BATCH_ROW} B={BASIC_BATCH}"),
+        "resnet_decode_tpu_n15": batch_kernel_checks(
+            torch, params, ntt_mod, nk, "tpu_n15", resnet_decode_sizes, "ResNet decode"),
+        f"{BASIC_BATCH_ROW}_decode_tpu_n14": batch_kernel_checks(
+            torch, params, ntt_mod, nk, "tpu_n14",
+            basic_batch_out["streamed"]["decode_ntt_sizes"], f"{BASIC_BATCH_ROW} decode")})
     report["profile"], by_path["profile_tpu_n14"] = timed(
         "profile", profile_ops, torch, nk, ntt_mod)
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     per_ct = {f"resnet_tpu_n15_batch{RESNET_BATCH}_request": RESNET_BATCH,
-              f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request": BASIC_BATCH}
+              f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request": BASIC_BATCH,
+              f"basic_{BASIC_BATCH_ROW}_streamed_batch{BASIC_BATCH}_request": BASIC_BATCH}
     kernels = []
     for mode, name, line in (("fwd", "ntt_fwd_cuda", 94), ("inv", "ntt_inv_cuda", 110)):
         r = results[mode][("tpu_n15", 112)]

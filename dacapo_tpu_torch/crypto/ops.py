@@ -153,6 +153,47 @@ class Evaluator:
         sh = [host_shoup(v, q) for v, q in zip(vals, self.ctx.q_primes[:nl])]
         return np.stack([np.array(vals, np.uint32), np.array(sh, np.uint32)])
 
+    # ------------------------------------------- compact plaintext decode
+    def decode_plain(self, lohi, rows):
+        """Compact plaintexts -> NTT-domain planes, on the Evaluator's
+        device (reference ops.py:296-307). lohi: int32 [B, 2, N], the bits
+        of Encoder.encode_compact_batch's uint32 records; rows: the target
+        prime rows. Returns int32 [B, len(rows), N] in orbit order."""
+        if lohi.dim() != 3 or lohi.shape[1] != 2 or lohi.shape[2] != self.n:
+            raise ValueError(f"decode_plain takes [B, 2, {self.n}] records, "
+                             f"got {tuple(lohi.shape)}")
+        if lohi.dtype != torch.int32 or lohi.device.type != self.device.type:
+            raise ValueError(f"decode_plain takes int32 records on the {self.device.type} "
+                             f"device, got {lohi.dtype} on {lohi.device}")
+        return self._decode_plain(lohi, rows)
+
+    def _decode_plain(self, lohi, rows):
+        """Each coefficient is sign * (hi_abs * 2^32 + lo) * 2^k (row 0: lo;
+        row 1: hi_abs in bits 0-22, sign in bit 23, k in bits 24-31): its
+        residue mod each q_r, then one forward NTT over all B * R planes.
+        The reference's Barrett and Montgomery steps on uint32 give the
+        canonical residue, which int64 `%` gives directly; the words are
+        masked to their uint32 value first, so no shift sees a sign."""
+        rows = tuple(rows)
+        key = ("dec", rows)
+        tabs = self._tabs.get(key)
+        if tabs is None:
+            ix = np.asarray(rows, dtype=np.int64)
+            ht = self.ctx.host_tables
+            tabs = self._tabs[key] = (
+                torch.from_numpy(ht["q"][ix].astype(np.int64)[:, None]).to(self.device),
+                torch.from_numpy(ht["pow2"][ix].astype(np.int64)).to(self.device))
+        q, pow2 = tabs                                  # [R, 1], [R, 256]
+        b = lohi.shape[0]
+        w = lohi.to(torch.int64) & 0xFFFFFFFF
+        lo, hi = w[:, 0, None, :], w[:, 1, None, :]     # [B, 1, N]
+        val = (((hi & 0x7FFFFF) << 32) | lo) % q        # [B, R, N]; |mi| < 2^55
+        val = torch.where(((hi >> 23) & 1).bool() & (val != 0), q - val, val)
+        # 2^k mod q_r, gathered per coefficient: [R, B*N], no [B, R, 256]
+        p2k = pow2.index_select(1, (hi >> 24).reshape(-1))
+        val = val * p2k.view(len(rows), b, self.n).transpose(0, 1) % q
+        return self._ntt(val.to(torch.int32), rows)
+
     def upscale_res(self, ct, nl, ccs):
         """Multiply by the per-row scalar ccs[0] (ccs: int32 [2, nl])."""
         return mul_mod(ct, ccs[0][:, None], self._q(range(nl)))

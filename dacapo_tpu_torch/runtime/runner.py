@@ -41,6 +41,14 @@ per-op paths both replay. `host_rng=True` draws the oracle's randomness from
 the key generator's numpy RNG instead (the JAX package's
 DACAPO_TPU_ORACLE_JIT=0 path), which the CPU tests hold bit for bit.
 
+Device memory (vm/executor.py, the JAX package's plan): galois keys past
+55 % and plaintexts past 12 % of the device memory stream. The memory is
+DACAPO_TPU_HBM_BYTES when set, else the card's total (on the CPU: 16 GiB
+for N >= 2^15). `DACAPO_TPU_HBM_BYTES=17179869184` picks the JAX package's
+16 GiB plan, under which ResNet-20's plaintexts stream from the compact
+device pool; `executor.streaming` says which mode `load` chose, and its
+part of `load_seconds` is "compact_encode" instead of "preencode".
+
 `jit` selects the executor's path (vm/executor.py): "auto" (the default) or
 "segment" runs the segment plan, as CUDA graphs that `load` captures on the
 card (`load_seconds["capture"]`) and eagerly on the CPU; True does the same
@@ -256,7 +264,9 @@ class HEVM:
         lap()
         self.executor.preprocess()
         lap()
-        parts = ["read", "galois_keygen", "preencode"]
+        # a streaming executor's plaintexts are the compact pool's encode
+        parts = ["read", "galois_keygen",
+                 "compact_encode" if self.executor.streaming else "preencode"]
         if self.device.type == "cuda" and self.executor.warm_bootstraps():
             lap()
             parts.append("bootstrap_warmup")

@@ -37,14 +37,38 @@ recording a kernel into a graph is not a launch, and a replay launches the
 graph's kernels without the wrapper, so the NTT kernels a request runs inside
 graphs are counted on the device (the profiler, chip_smoke.py).
 
+Plaintexts (reference :61-306, :741-831). preprocess keeps them resident
+as NTT-domain planes while their bytes (QP rows included) fit the plaintext
+budget, PTXT_BUDGET_FRAC of the device memory `_hbm_limit` reports (the
+JAX rule: DACAPO_TPU_HBM_BYTES when set, else the card's total; on the
+CPU, 16 GiB for N >= 2^15 and no limit below, the JAX package's rule for a
+backend without memory stats). Over budget it streams: every unique
+payload is one compact 2-row record in a device pool (`_pt_pool`,
+Encoder.encode_compact_batch), decoded on the device by
+Evaluator.decode_plain at each use. A segment window of at least
+SEGMENT_MIN_OPS ops decodes its plaintexts at its start, grouped by row
+tuple (`_seg_pt_groups`, the reference's in-graph decode): on the card
+inside its CUDA graph, from index tensors into the pool uploaded before
+the capture, so a replay reads 2 rows per plaintext and no address in the
+graph depends on an LRU; a batch graph does the same, the planes
+broadcast over the batch (the reference decodes outside its vmapped
+window; the values are the same). The per-op path and tiny windows read
+through an LRU of decoded planes under the budget (`_plain`,
+`_plain_prefetch` for a fused bank's masks, `_pt_insert`).
+
 Not ported: `_seg_struct_key` (structurally equal windows sharing one
 compiled function): a graph bakes in the addresses of the resident galois
 keys and plaintexts, so sharing one would mean copying those into static
-buffers before every replay; the port keeps one graph per window.
-`_pt_ingraph`, `_seg_pt_groups`, `_seg_plains_arg` and `SYNC_EVERY` serve
-plaintext streaming and in-flight host uploads, which do not exist in the
-port: every plaintext and key is resident on the device (the compact
-plaintext pool, ROADMAP A.7). The mesh (parallel/mesh.py) is not ported.
+buffers before every replay; the port keeps one graph per window. The
+reference's legacy streaming mode (DACAPO_TPU_PT_INGRAPH=0: LRU-decoded
+planes passed into the window) cannot feed a graph, because an LRU
+eviction frees the planes whose addresses a graph baked in; streaming
+windows always decode in-graph. `SYNC_EVERY` bounds the reference's host
+uploads in flight (pinned streamed keys and plaintexts of every enqueued
+window); here no window uploads from the host: the pool is on the device
+before the first request, and PyTorch copies pageable host memory (a
+budgeted galois key) before the call returns, so nothing stays in flight.
+The mesh (parallel/mesh.py) is not ported.
 
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
@@ -53,8 +77,10 @@ semantics in addcc/addcp (SEAL_HEVM.cpp:297-310).
 
 import hashlib
 import math
+import os
 import sys
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -75,7 +101,11 @@ class HEVMExecutor:
     # Galois keys beyond this fraction of the card's memory stay in host RAM
     # behind a device LRU (crypto/keys.GaloisStore).
     KEY_BUDGET_FRAC = 0.55
+    # Plaintexts beyond this fraction stream from the compact device pool.
+    PTXT_BUDGET_FRAC = 0.12
     NTT_BATCH = (64, 16, 4, 1)   # plaintexts per batched-NTT launch (per nl)
+    PT_ENCODE_BATCH = 64         # payloads per compact-encode FFT batch
+    PT_BATCH = (32, 8, 2, 1)     # plaintexts per LRU decode launch (a bank's masks)
     SEGMENT_MAX_OPS = 96         # split long windows
     SEGMENT_MIN_OPS = 4          # below this, eager dispatch is cheaper
 
@@ -92,8 +122,17 @@ class HEVMExecutor:
         self.ops, self.num_regs, self.res_dst = ssa_expand(program)
         self.ops, self._fused_pt_regs, self.num_regs = build_fuse_plan(
             self.ops, self.num_regs, self.res_dst)
-        self.plains = [None] * program.num_ptxt      # device planes
+        self.plains = [None] * program.num_ptxt      # device planes, or pool ids
         self.plain_meta = [None] * program.num_ptxt  # (nl, scale)
+        self._pt_cid = [None] * program.num_ptxt     # register -> dedup id
+        self._pt_rows = {}                           # cid -> decode row list
+        self._pt_pool = None                         # int32 [cids, 2, N] (streaming)
+        self._pt_dev = OrderedDict()                 # cid -> decoded planes (LRU)
+        self._pt_dev_bytes = 0
+        self._pt_groups = {}                         # window index -> decode groups
+        self._pt_budget = None
+        self._streaming = False
+        self.plain_bytes = self.pool_bytes = 0
         self._uk_cache = {}
         self._last_outputs = None
         self._seg_plan = None
@@ -121,16 +160,33 @@ class HEVMExecutor:
         self._set_memory_budgets()
         self._prepare_keys()
 
+    def _hbm_limit(self):
+        """Device bytes the budgets are fractions of (reference :71-87):
+        DACAPO_TPU_HBM_BYTES when set, else the card's total memory; on the
+        CPU, which reports none (as a JAX backend without memory stats), 16
+        GiB for N >= 2^15 and no limit below."""
+        env = os.environ.get("DACAPO_TPU_HBM_BYTES")
+        if env:
+            return int(env)
+        if self.s.device.type == "cuda":
+            return torch.cuda.mem_get_info(self.s.device)[1]
+        return 16 << 30 if self.s.ctx.n >= (1 << 15) else None
+
     def _set_memory_budgets(self):
-        dev = self.s.device
-        if dev.type != "cuda":
+        limit = self._hbm_limit()
+        if limit is None:
             return
-        _, total = torch.cuda.mem_get_info(dev)
-        if self.key_bytes > self.KEY_BUDGET_FRAC * total:
+        if self.key_bytes > self.KEY_BUDGET_FRAC * limit:
             print(f"[hevm] galois keys {self.key_bytes >> 20} MiB exceed budget "
-                  f"{int(self.KEY_BUDGET_FRAC * total) >> 20} MiB: "
+                  f"{int(self.KEY_BUDGET_FRAC * limit) >> 20} MiB: "
                   "streaming keys from host (LRU)", file=sys.stderr)
-            self.s.set_key_budget(int(self.KEY_BUDGET_FRAC * total))
+            self.s.set_key_budget(int(self.KEY_BUDGET_FRAC * limit))
+        self._pt_budget = int(self.PTXT_BUDGET_FRAC * limit)
+
+    @property
+    def streaming(self):
+        """True when preprocess put the plaintexts in the compact pool."""
+        return self._streaming
 
     def setDebug(self, flag=True):
         """Per-op level and scale trace on stderr, like the reference VMs'
@@ -188,18 +244,20 @@ class HEVMExecutor:
     # ------------------------------------------------------------ preprocess
     def preprocess(self):
         """Pre-encode all plaintexts offline (SEAL_HEVM.cpp:242-267):
-        payload-identical encodes are deduplicated, device NTTs batched per
-        level, and encode scales / upscale multipliers follow the scale
-        steering solution (vm/steer.py)."""
+        payload-identical encodes are deduplicated, encode scales / upscale
+        multipliers follow the scale steering solution (vm/steer.py). Under
+        the plaintext budget they stay resident as NTT-domain planes, device
+        NTTs batched per level; over it (module docstring) each unique
+        payload becomes one compact record of the device pool."""
         # the graphs read the plaintexts replaced here
         self._captured = self._captured_batch = None
         enc = self.s.encoder
         ctx = self.s.ctx
+        dev = self.s.device
         alpha = ctx.config.alpha
         st = steer_scales(self.prog, [int(q) for q in ctx.q_primes], self.rr,
                           ctx.config.prime_bits)
         nq = ctx.config.num_q
-        self.plain_bytes = 0
         self._steer_res = {opi: self.ev.scalar_rows(k, nq)
                            for opi, (k, _nl) in st.up_k.items()}
         self._steer_kf = {opi: float(k) for opi, (k, _nl) in st.up_k.items()}
@@ -230,14 +288,48 @@ class HEVMExecutor:
                 cid_info.append((data, nl, sc))
                 cid_regs.append([])
             cid_regs[cid].append(op.dst)
+            self._pt_cid[op.dst] = cid
             self.plain_meta[op.dst] = (nl, sc)
 
         # plaintexts feeding fused rot-mac banks need the extended Q^{(nl)}P
         # basis (lazy-ModDown masks): extra `alpha` special-prime rows
         cid_qp = [any(r in self._fused_pt_regs for r in regs) for regs in cid_regs]
         sp_rows = [nq + i for i in range(alpha)]
-        # host-encode the unique payloads grouped by (nl, qp-extended): one
-        # vectorized FFT per batch, then one prime-major NTT per batch
+        need = sum((nl + (alpha if qp else 0)) * ctx.n * 4
+                   for (_, nl, _), qp in zip(cid_info, cid_qp))
+        self._streaming = self._pt_budget is not None and need > self._pt_budget
+        self._pt_pool, self._pt_rows, self._pt_groups = None, {}, {}
+        self._pt_dev, self._pt_dev_bytes = OrderedDict(), 0
+        self.plain_bytes = self.pool_bytes = 0
+        self.n_plains = len(cid_info)
+        if self._streaming:
+            # the compact pool, 2 rows of N words per unique payload, filled
+            # chunk by chunk on the device
+            pool = torch.empty((len(cid_info), 2, ctx.n), dtype=torch.int32, device=dev)
+            for i in range(0, len(cid_info), self.PT_ENCODE_BATCH):
+                chunk = cid_info[i: i + self.PT_ENCODE_BATCH]
+                pool[i: i + len(chunk)] = to_dev(enc.encode_compact_batch(
+                    [c[0] for c in chunk], [c[2] for c in chunk]), dev)
+            self._pt_pool, self.pool_bytes = pool, pool.nbytes
+            for cid, (_, nl, _) in enumerate(cid_info):
+                self._pt_rows[cid] = list(range(nl)) + (sp_rows if cid_qp[cid] else [])
+                for dst in cid_regs[cid]:
+                    self.plains[dst] = cid          # a pool id: decoded at use
+            held = (f"streaming: compact pool {self.pool_bytes} bytes (resident "
+                    f"planes {need} bytes > budget {self._pt_budget})")
+        else:
+            self._preencode(cid_info, cid_regs, cid_qp, sp_rows)
+            held = f"{self.plain_bytes} bytes resident"
+        print(f"[hevm] {self.n_plains} unique plaintexts of "
+              f"{sum(1 for o in self.prog.ops if o.opcode == OP_ENCODE)} "
+              f"encodes: {held}; {self.n_keys} galois keys: {self.key_bytes} bytes",
+              file=sys.stderr, flush=True)
+
+    def _preencode(self, cid_info, cid_regs, cid_qp, sp_rows):
+        """The resident planes: host-encode the unique payloads grouped by
+        (nl, qp-extended), one vectorized FFT per batch, then one
+        prime-major NTT per batch."""
+        ctx = self.s.ctx
         by_grp = {}
         for cid, (_, nl, _) in enumerate(cid_info):
             by_grp.setdefault((nl, cid_qp[cid]), []).append(cid)
@@ -249,9 +341,9 @@ class HEVMExecutor:
             while i < len(cids):
                 bsz = next(b for b in self.NTT_BATCH if b <= len(cids) - i)
                 chunk = cids[i: i + bsz]
-                blk = enc.encode_batch([cid_info[c][0] for c in chunk],
-                                       [cid_info[c][2] for c in chunk], nl,
-                                       primes=primes)        # [bsz, nrows, N]
+                blk = self.s.encoder.encode_batch(
+                    [cid_info[c][0] for c in chunk], [cid_info[c][2] for c in chunk], nl,
+                    primes=primes)                                   # [bsz, nrows, N]
                 flat = np.ascontiguousarray(blk.transpose(1, 0, 2)).reshape(
                     bsz * nrows, -1)
                 rows = [r for r in rows_list for _ in range(bsz)]
@@ -263,15 +355,53 @@ class HEVMExecutor:
                     for dst in cid_regs[c]:
                         self.plains[dst] = planes
                 i += bsz
-        self.n_plains = len(cid_info)
-        print(f"[hevm] {self.n_plains} unique plaintexts of "
-              f"{sum(1 for o in self.prog.ops if o.opcode == OP_ENCODE)} "
-              f"encodes: {self.plain_bytes} bytes resident; {self.n_keys} "
-              f"galois keys: {self.key_bytes} bytes", file=sys.stderr, flush=True)
+
+    def _pt_insert(self, cid, planes):
+        """Add decoded planes to the LRU, then evict the oldest entries while
+        over the budget (a single entry stays, however large)."""
+        self._pt_dev[cid] = planes
+        self._pt_dev_bytes += planes.nbytes
+        while self._pt_dev_bytes > self._pt_budget and len(self._pt_dev) > 1:
+            _, old = self._pt_dev.popitem(last=False)
+            self._pt_dev_bytes -= old.nbytes
 
     def _plain(self, idx, nl):
+        """NTT planes [:nl] of plaintext register idx: resident, or when
+        streaming decoded from the pool at first use and kept in the LRU."""
         p = self.plains[idx]
+        if isinstance(p, int):
+            hit = self._pt_dev.get(p)
+            if hit is None:
+                hit = self.ev.decode_plain(self._pt_pool[p: p + 1], self._pt_rows[p])[0]
+                self._pt_insert(p, hit)
+            else:
+                self._pt_dev.move_to_end(p)
+            p = hit
         return p if nl is None else p[:nl]
+
+    def _plain_prefetch(self, regs):
+        """Decode the plaintexts of a fused bank that the LRU lacks, PT_BATCH
+        at a time per row tuple: one decode per chunk instead of one per
+        mask (the eager paths)."""
+        if not self._streaming:
+            return
+        missing = {}
+        for r in regs:
+            cid = self._pt_cid[r]
+            if cid is not None and cid not in self._pt_dev:
+                missing.setdefault(tuple(self._pt_rows[cid]), set()).add(cid)
+        for rows, cidset in missing.items():
+            cids = sorted(cidset)
+            i = 0
+            while i < len(cids):
+                bsz = next(b for b in self.PT_BATCH if b <= len(cids) - i)
+                chunk = cids[i: i + bsz]
+                idx = torch.tensor(chunk, dtype=torch.int64, device=self.s.device)
+                out = self.ev.decode_plain(self._pt_pool[idx], rows)
+                for k, cid in enumerate(chunk):
+                    # a copy, so that an eviction frees its bytes
+                    self._pt_insert(cid, out[k].clone() if bsz > 1 else out[k])
+                i += bsz
 
     def _plain_rows_qp(self, full, reg, nl):
         """Q^{(nl)}P rows of a QP-encoded plaintext: first nl Q rows plus the
@@ -281,9 +411,12 @@ class HEVMExecutor:
         return torch.cat([full[:nl], full[nl_enc: nl_enc + alpha]])
 
     # ------------------------------------------------------------ dispatch
-    def _exec_stream(self, ops, ciphers, meta, out_regs):
+    def _exec_stream(self, ops, ciphers, meta, out_regs, getplain=None):
         """Interpret the instruction stream over device tensors. Mutates
-        `ciphers`/`meta`; returns the tensors of `out_regs`.
+        `ciphers`/`meta`; returns the tensors of `out_regs`. getplain(reg,
+        nl): a plaintext's planes; by default `_plain` (resident, or the
+        LRU with a fused bank's masks prefetched), else a window's decoded
+        planes (`_seg_body`).
 
         Rotations run LAZILY: every `rotatec` of the same source joins a
         pending bank, flushed as ONE hoisted batched rotation
@@ -292,6 +425,11 @@ class HEVMExecutor:
         ev = self.ev
         galois = self.s.keys.galois
         rlk = self.s.keys.rlk
+        prefetch = None
+        if getplain is None:
+            getplain = self._plain
+            if self._streaming:
+                prefetch = self._plain_prefetch
         banks_by_src = {}      # (id(src), nl) -> bank
         bank_of_dst = {}       # dst reg -> bank
 
@@ -339,16 +477,18 @@ class HEVMExecutor:
             if oc == OP_ROTMAC:
                 nl, ssc = meta[op.src] if op.src >= 0 else meta[op.plain_vals[0]]
                 psc = self.plain_meta[(op.pt_regs or op.plain_pts)[0]][1]
+                if prefetch is not None:
+                    prefetch(list(op.pt_regs) + list(op.plain_pts))
                 extras = [materialize(r) for r in op.extra]
                 pvals = [materialize(r) for r in op.plain_vals]
-                ppts = [self._plain(r, nl) for r in op.plain_pts]
+                ppts = [getplain(r, nl) for r in op.plain_pts]
                 src = digits = shifts = None
                 gks, pts = [], []
                 if op.src >= 0:
                     src = materialize(op.src)
                     shifts = list(op.steps)
                     gks = [galois[st] for st in op.steps]
-                    pts = [self._plain_rows_qp(self._plain(r, None), r, nl)
+                    pts = [self._plain_rows_qp(getplain(r, None), r, nl)
                            for r in op.pt_regs]
                     dkey = (op.src, nl)
                     hit = dig_cache.get(dkey)
@@ -436,7 +576,7 @@ class HEVMExecutor:
                 nl, _ = meta[op.lhs]
                 _, psc = self.plain_meta[op.rhs]
                 ciphers[op.dst] = ev.add_pt(
-                    ciphers[op.lhs], self._plain(op.rhs, nl), nl)
+                    ciphers[op.lhs], getplain(op.rhs, nl), nl)
                 meta[op.dst] = (nl, psc)
             elif oc == OP_MULCC:
                 nl, sa = meta[op.lhs]
@@ -447,7 +587,7 @@ class HEVMExecutor:
                 nl, sa = meta[op.lhs]
                 _, psc = self.plain_meta[op.rhs]
                 ciphers[op.dst] = ev.mul_pt(
-                    ciphers[op.lhs], self._plain(op.rhs, nl), nl)
+                    ciphers[op.lhs], getplain(op.rhs, nl), nl)
                 meta[op.dst] = (nl, sa * psc)
             elif oc == OP_BOOTSTRAP:
                 # scale-preserving (the oracle reheats after a cooled lift,
@@ -700,7 +840,9 @@ class HEVMExecutor:
         oracle or eager-window output) gets a zeroed static buffer, [B, 2,
         nl, N] for a batch of B, that the replay copies into. Nothing random
         is drawn: the MLP's first request stays bit-equal to the JAX
-        package's."""
+        package's. With streaming plaintexts each graph decodes its own
+        (`_seg_body`): the stats count the rows a request decodes and the
+        largest window's decoded bytes."""
         dev = self.s.device
         n = self.s.ctx.n
         lead = () if batch is None else (batch,)
@@ -709,14 +851,18 @@ class HEVMExecutor:
         stream = torch.cuda.Stream(dev)
         pool = torch.cuda.graph_pool_handle()
         graphs = {}
+        decode_rows = []      # rows each graph decodes
         for wi, info in enumerate(plan):
             if info["kind"] == "seg" and len(info["ops"]) >= self.SEGMENT_MIN_OPS:
+                if self._streaming:
+                    decode_rows.append(sum(len(rows) * len(regs) for rows, regs, _
+                                           in self._seg_pt_groups(wi, info)))
                 ins = [graph_out[r] if r in graph_out else
                        torch.zeros(lead + (2, meta[r][0], n), dtype=torch.int32,
                                    device=dev)
                        for r in info["ins"]]
                 rec = graphs[wi] = self._seg_graph(
-                    info, {r: meta[r] for r in info["ins"]}, ins, stream, pool)
+                    wi, info, {r: meta[r] for r in info["ins"]}, ins, stream, pool)
                 graph_out.update(zip(info["outs"], rec["outs"]))
             for op in info["ops"]:
                 self._meta_step(op, meta)
@@ -725,23 +871,58 @@ class HEVMExecutor:
         stats = dict(
             windows=len(plan), graphs=len(graphs),
             **{k: sum(g[k] for g in graphs.values()) for k in ("warmup_s", "capture_s")})
+        if self._streaming:
+            stats.update(decode_rows=sum(decode_rows),
+                         decode_max_bytes=max(decode_rows, default=0) * n * 4)
         if batch is None:
             self.capture_stats = stats
         else:
             self.batch_capture_stats = dict(stats, batch=batch)
         return graphs
 
-    def _seg_graph(self, info, in_meta, ins, stream, pool):
-        """Capture one window's _exec_stream into one CUDA graph over the
-        static inputs `ins` (aligned with info["ins"]). The window first runs
-        once eagerly on the capture stream over the same inputs: that fills
-        the Evaluator's and the executor's device caches, since no upload
-        from host memory may run under capture. Returns the record: graph,
-        ins, outs (static outputs, aligned with info["outs"]), and seconds
-        (capture_s: capture and instantiation)."""
+    def _seg_pt_groups(self, wi, info):
+        """Window wi's plaintext registers grouped by decode row tuple, in
+        row-tuple order (reference _seg_pt_groups): [(rows, regs, index)],
+        index the registers' pool ids as a device tensor. Made once per
+        preprocess, before any capture: nothing uploads under capture."""
+        groups = self._pt_groups.get(wi)
+        if groups is None:
+            by_rows = {}
+            for r in info["plain_regs"]:
+                by_rows.setdefault(tuple(self._pt_rows[self._pt_cid[r]]), []).append(r)
+            groups = self._pt_groups[wi] = [
+                (rows, regs, torch.tensor([self._pt_cid[r] for r in regs],
+                                          dtype=torch.int64, device=self.s.device))
+                for rows, regs in sorted(by_rows.items())]
+        return groups
+
+    def _seg_body(self, wi, info, ciphers, meta):
+        """Window wi (at least SEGMENT_MIN_OPS ops) as its graph runs it, and
+        as the CPU runs it eagerly. With streaming plaintexts it first
+        gathers each group's records from the pool and decodes them, one
+        decode per group (the reference's in-graph decode), then interprets
+        the window over those planes."""
+        getplain = None
+        if self._streaming:
+            planes = {}
+            for rows, regs, idx in self._seg_pt_groups(wi, info):
+                planes.update(zip(regs, self.ev._decode_plain(self._pt_pool[idx], rows)))
+
+            def getplain(r, nl):
+                return planes[r] if nl is None else planes[r][:nl]
+
+        return self._exec_stream(info["ops"], ciphers, meta, info["outs"], getplain)
+
+    def _seg_graph(self, wi, info, in_meta, ins, stream, pool):
+        """Capture window wi's _seg_body into one CUDA graph over the static
+        inputs `ins` (aligned with info["ins"]). The window first runs once
+        eagerly on the capture stream over the same inputs: that fills the
+        Evaluator's and the executor's device caches (the decode tables
+        too), since no upload from host memory may run under capture.
+        Returns the record: graph, ins, outs (static outputs, aligned with
+        info["outs"]), and seconds (capture_s: capture and instantiation)."""
         def body():
-            return self._exec_stream(info["ops"], dict(zip(info["ins"], ins)),
-                                     dict(in_meta), info["outs"])
+            return self._seg_body(wi, info, dict(zip(info["ins"], ins)), dict(in_meta))
 
         t0 = time.perf_counter()
         stream.wait_stream(torch.cuda.current_stream())
@@ -757,8 +938,9 @@ class HEVMExecutor:
 
     def _run_segmented(self, arg_cts, batch=None):
         """Replay walk: per window, the bootstrap (boot: the device oracle
-        replays its graph and returns a copy of the output), an eager _exec_stream
-        (no graph: tiny windows, and every window on the CPU), or: copy each
+        replays its graph and returns a copy of the output), an eager run
+        (no graph: a tiny window's _exec_stream, and on the CPU every other
+        window's _seg_body), or: copy each
         input that is not already the graph's own static input in, replay,
         and bind the static outputs. Returns copies of the outputs, since the
         next replay overwrites a graph's outputs. batch=B: every register
@@ -779,6 +961,9 @@ class HEVMExecutor:
                 ciphers[op.dst], meta[op.dst] = self._bootstrap(
                     ciphers[op.lhs], nl, sc, op.rhs, batch)
                 kind = "boot"
+            elif rec is None and len(info["ops"]) >= self.SEGMENT_MIN_OPS:
+                self._seg_body(wi, info, ciphers, meta)     # the CPU
+                kind = "eager"
             elif rec is None:
                 self._exec_stream(info["ops"], ciphers, meta, info["outs"])
                 kind = "eager"
