@@ -60,17 +60,21 @@
    profiled batch request; seconds a batch and a ciphertext beside the B=1
    median, capture seconds and peak device memory; then, the resident VM
    freed, the streaming part: a second HEVM("tpu_n15") on the same keyset
-   and the same traced files under the JAX package's 16 GiB plan
-   (DACAPO_TPU_HBM_BYTES = 2^34) must stream its plaintexts (the compact
-   pool; its galois keys stay resident); its load captures the segment
-   graphs, each decoding its plaintexts in-graph, and one oracle graph;
-   three timed requests held to the same bar, 19 oracle replays, no plain
-   NTT and no capture each; the resident VM's second request (argument and
-   oracle draws restored) gives the resident VM's output ciphertexts on the
-   segment path and per-op through the LRU; one request profiled, and the
-   decode of one request profiled alone (device time, NTT and the rest
-   apart); pool bytes against resident plaintext bytes, both VMs' peaks;
-   the earlier phases' VMs must all stay resident (streaming: false);
+   and the same traced files under a 10 GiB plan (DACAPO_TPU_HBM_BYTES =
+   10 * 2^30) must stream its plaintexts (the compact pool) and its galois
+   keys (key budget 5,905,580,032 B: the load pins their host copies and
+   makes the key arena); its load captures the segment graphs, each
+   decoding its plaintexts in-graph and reading its keys from its arena
+   slots, and one oracle graph; three timed requests held to the same bar,
+   19 oracle replays, no plain NTT and no capture each, all 96 graphs
+   replayed, the planned key copies and no LRU upload, device key bytes
+   (arena and LRU) within the budget; the resident VM's second request
+   (argument and oracle draws restored) gives the resident VM's output
+   ciphertexts on the segment path and per-op through the LRU; one request
+   profiled (idle share, the key copies' device time), and the decode of
+   one request profiled alone (device time, NTT and the rest apart); pool
+   bytes against resident plaintext bytes, both VMs' peaks; the earlier
+   phases' VMs must all stay resident (streaming: false);
 8. runs Scheme("tpu_n16", seed=5) on the card: keygen, encrypt two vectors,
    mul (relinearise), rescale, decrypt; checks the RMS against a*b, the
    output ciphertext bit-equal to the same calls with device="cpu", and that
@@ -89,6 +93,13 @@
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
    and nl=2 to level 14 (RMS <= 1e-5), timed three times, one bootstrap
    profiled (idle share, kernels, NTT calls of each mode on the device);
+   (d) the same HEVM loads the program again under the JAX package's 16
+   GiB plan (DACAPO_TPU_HBM_BYTES = 2^34): its galois keys pass the key
+   budget, so it loads on the segment path with a key arena (the native
+   bootstraps read theirs through the LRU from pinned host memory) and
+   serves the three request ciphertexts of (c) again: RMS, 2 bootstraps
+   (timed), every graph replayed, the planned key copies, device key bytes
+   within the budget, outputs bit-equal to (c)'s; one request profiled;
 10. the basic phase: the five non-MLP rows of the basic list
     (SobelFilter, HarrisCornerDetection, LinearRegression, Multivariate on
     tpu_n14, PolynomialRegression on tpu_n15, pars/40, the inputs of
@@ -105,9 +116,10 @@
     output ciphertexts byte-equal to a single request's on the same argument
     ciphertexts, every row's RMS <= 2e-5, seconds a batch and a ciphertext
     beside the single requests' in the same run; then the same batch on a
-    second HEVM forced to stream (a plaintext budget of half its plaintext
-    bytes): its batch graphs decode in-graph and its rows must equal the
-    resident batch's byte for byte, one request profiled;
+    second HEVM under a 64 MiB plan (DACAPO_TPU_HBM_BYTES), which streams
+    its plaintexts and budgets its galois keys: its batch graphs decode
+    in-graph and read their keys from the arena, and its rows must equal
+    the resident batch's byte for byte, one request profiled;
 11. the NTT at every batch size the two batch paths launched (recorded by
     wrapping the Evaluator's kernel call over each batch capture and first
     request) and at every batch size the two streaming parts' plaintext
@@ -162,9 +174,19 @@ N_TIMED = 25
 RESNET_BATCH = 4               # ciphertexts a ResNet batch request carries
 BASIC_BATCH = 8                # and a Multivariate one
 BASIC_BATCH_ROW = "Multivariate"
-# the JAX package's 16 GiB assumption (vm/executor.py), under which its
-# ResNet-20 streamed its plaintexts: 12 % of it is the plaintext budget
-STREAM_HBM_BYTES = 16 << 30
+# device-memory plans (DACAPO_TPU_HBM_BYTES; vm/executor.py: galois keys
+# past 55 % of it and plaintexts past 12 % stream). ResNet-20 at 10 GiB:
+# key budget 5,905,580,032 B (about 160 of its 202 keys), plaintext budget
+# 1,288,490,188 B, so both stream
+STREAM_HBM_BYTES = 10 << 30
+# the JAX package's 16 GiB assumption for a device without memory stats:
+# the deep tpu_n15b program's 161 galois keys and conjugation key (78.6 MB
+# each) pass its 9,448,928,051 B key budget
+NATIVE_PLAN_BYTES = 16 << 30
+# Multivariate at tpu_n14: 12 % of 64 MiB is below its 8,257,536 B of
+# resident plaintexts, and 55 % of it below its twelve 10.5 MB keys
+BASIC_PLAN_BYTES = 64 << 20
+KEY_BUDGET_FRAC = 0.55         # vm/executor.py HEVMExecutor.KEY_BUDGET_FRAC
 
 
 def log(*a):
@@ -368,7 +390,11 @@ def batch_kernel_checks(torch, params, ntt_mod, nk, profile, sizes, tag):
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                        "cuLaunchKernelEx")
 GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
-PROFILE_ATTEMPTS = 3             # traces of one request before a lossy profile fails the run
+# traces of one request before a lossy profile fails the run: a trace drops
+# kernel records now and then (scripts/trace_loss_probe.py: a few in 20
+# traces of one batch request lose a single NTT pass), and one run's three
+# traces of the streamed Multivariate batch all did
+PROFILE_ATTEMPTS = 6
 
 
 def graph_kernels(prof):
@@ -409,16 +435,19 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     graphs. Without replays the two must be equal. cpu=False records
     device activity and the runtime calls only (lighter on a long request).
     trace_loss_ok: a trace that holds fewer NTT calls than the wrapper
-    launched is reported (ntt_trace_short_by), not raised: the native
+    launched is reported (ntt_trace_short_by), not profiled again: the native
     bootstrap's traces drop a few kernel records (a standalone bootstrap's
     trace held one NTT call of each mode fewer than the wrapper launched, in
     two runs, and 69,890 device kernels and copies against 69,895 kernel
     launch calls).
     A trace whose NTT passes are unequal (nk.TraceLossError: it lost a
     kernel record; a ResNet request's trace of ~555k device kernels once held
-    one pass-A kernel fewer than pass-B) gives no numbers: the request is
-    profiled again, up to PROFILE_ATTEMPTS times, and the run fails if every
-    trace lost records. `request` must be safe to repeat; plain NTT calls
+    one pass-A kernel fewer than pass-B), or, without trace_loss_ok, that
+    holds fewer NTT calls than the wrapper launched (the streaming decode's
+    trace once held 418 of 420, and 9,194 device kernels and copies against
+    9,240 kernel launch calls), gives no numbers: the request is profiled
+    again, up to PROFILE_ATTEMPTS times, and the run fails if every trace
+    lost records. `request` must be safe to repeat; plain NTT calls
     are summed over all attempts, and lossy_traces lists the refused ones."""
     from torch.profiler import profile, ProfilerActivity
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
@@ -438,10 +467,16 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
         averages = prof.key_averages()
         try:
             ntt_launches = nk.launches_in_profile(averages)
+            short = {k: wrapper[k] - ntt_launches[k] for k in wrapper
+                     if ntt_launches[k] < wrapper[k]}
+            if short and not trace_loss_ok:
+                raise nk.TraceLossError(f"the trace holds fewer NTT calls than the wrapper "
+                                        f"launched: {ntt_launches} < {wrapper}")
             break
         except nk.TraceLossError as e:
             lossy.append(str(e))
             log(f"[{tag}] the trace lost kernel records ({e}): profiling the request again")
+            time.sleep(1.0)
     else:
         raise AssertionError(f"[{tag}] all {PROFILE_ATTEMPTS} traces lost kernel records: "
                              f"{lossy}")
@@ -489,11 +524,7 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
             f"(largest {max(per_graph)})")
     log(f"[{tag}] NTT calls the device ran {ntt_launches}, the wrapper launched outside "
         f"graphs {wrapper}, plain NTT calls {plain}")
-    short = {k: wrapper[k] - ntt_launches[k] for k in wrapper if ntt_launches[k] < wrapper[k]}
     out["ntt_trace_short_by"] = short
-    if short and not trace_loss_ok:
-        raise AssertionError(f"the trace holds fewer NTT calls than the wrapper launched: "
-                             f"{ntt_launches} < {wrapper}")
     if short:
         log(f"[{tag}] the trace holds fewer NTT calls than the wrapper launched, short by "
             f"{short}: it dropped records (device kernels and copies {out['device_ops']}, "
@@ -1000,19 +1031,23 @@ class DecodeShapes:
 
 
 def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
-    """ResNet-20 under the JAX package's 16 GiB memory plan: a second
-    HEVM("tpu_n15") on the same keyset, built with DACAPO_TPU_HBM_BYTES =
-    STREAM_HBM_BYTES, loads the same traced .cst and .hevm after the
-    resident VM is gone. Its plaintexts must stream (the compact pool) with
-    its galois keys resident; the load captures the segment graphs, each
-    decoding its plaintexts in-graph, and one oracle graph. Three timed
+    """ResNet-20 under a 10 GiB memory plan: a second HEVM("tpu_n15") on the
+    same keyset, built with DACAPO_TPU_HBM_BYTES = STREAM_HBM_BYTES, loads
+    the same traced .cst and .hevm after the resident VM is gone. Its
+    plaintexts must stream (the compact pool) and so must its galois keys:
+    the load pins their host copies and makes the key arena, and captures
+    the segment graphs, each decoding its plaintexts in-graph and reading
+    its keys from its arena slots, and one oracle graph. Three timed
     requests are held to the RMS bar, 19 oracle replays, no plain NTT and no
-    capture each; the resident VM's second request (argument and oracle
-    draws restored) must give the same ciphertexts on the segment path and
-    per-op through the LRU; one request is profiled, and the decode of every
-    graph window of one request is profiled alone (its device time, NTT and
-    the rest apart). Returns (results, NTT calls of the profiled request,
-    the NTT batch sizes the decodes launched)."""
+    capture each, every graph window replayed, the planned key copies and
+    no LRU upload (no key read outside the arena), the device key bytes
+    (arena and LRU) within the key budget; the resident VM's second request
+    (argument and oracle draws restored) must give the same ciphertexts on
+    the segment path and per-op through the LRU; one request is profiled
+    (the staging copies' device time apart), and the decode of every graph
+    window of one request is profiled alone (its device time, NTT and the
+    rest apart). Returns (results, NTT calls of the profiled request, the
+    NTT batch sizes the decodes launched)."""
     from dacapo_tpu_torch.models import cnn_he
     expected, want, packed = resident["expected"], resident["want"], resident["packed"]
     out = dict(hbm_bytes=STREAM_HBM_BYTES)
@@ -1034,6 +1069,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         del os.environ["DACAPO_TPU_HBM_BYTES"]
     shutil.rmtree(RESNET_TRACE)
     ex, bs = vm.executor, vm.executor.bootstrapper
+    galois = vm.scheme.keys.galois
     cap = out["capture"] = ex.capture_stats
     out.update(load_parts_s=vm.load_seconds, streaming=ex.streaming, pool_bytes=ex.pool_bytes,
                plain_bytes=ex.plain_bytes, plaintext_budget_bytes=ex._pt_budget,
@@ -1051,10 +1087,23 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         f"rows a request in-graph (largest window {cap['decode_max_bytes']} bytes), "
         f"{out['oracle_graphs']} oracle graphs; {out['after_load_bytes']} bytes allocated "
         f"after load, peak {out['peak_load_bytes']}")
+    out["key_arena"] = dict(slots=cap["key_slots"], bytes=cap["key_arena_bytes"],
+                            copies_planned=cap["key_copies_planned"],
+                            copies_lru=cap["key_copies_lru"], pinned_slabs=len(galois._slabs),
+                            pinned_bytes=sum(t.nbytes for t in galois._slabs))
+    log(f"[resnet stream] galois keys under the budget {out['key_budget']}: arena "
+        f"{cap['key_slots']} slots ({cap['key_arena_bytes']} bytes), key copies a request "
+        f"planned {cap['key_copies_planned']} (a plain LRU of as many slots: "
+        f"{cap['key_copies_lru']}); host copies in {len(galois._slabs)} pinned slabs "
+        f"({out['key_arena']['pinned_bytes']} bytes); key pin "
+        f"{vm.load_seconds.get('key_pin', 0):.3f} s, key arena "
+        f"{vm.load_seconds.get('key_arena', 0):.3f} s")
     if not ex.streaming or "compact_encode" not in vm.load_seconds:
-        raise AssertionError("ResNet did not stream its plaintexts under the 16 GiB plan")
-    if out["key_budget"] is not None:
-        raise AssertionError("the 16 GiB plan put the galois keys under a budget")
+        raise AssertionError("ResNet did not stream its plaintexts under the 10 GiB plan")
+    if (out["key_budget"] != int(KEY_BUDGET_FRAC * STREAM_HBM_BYTES) or not cap["key_slots"]
+            or not {"key_pin", "key_arena"} <= set(vm.load_seconds)):
+        raise AssertionError(f"the 10 GiB plan did not stream ResNet's galois keys: budget "
+                             f"{out['key_budget']}, {cap}")
     if cap["graphs"] != resident["graphs"] or out["oracle_graphs"] != resident["oracle_graphs"]:
         raise AssertionError(f"the streaming load captured {cap['graphs']} segment and "
                              f"{out['oracle_graphs']} oracle graphs, the resident one "
@@ -1065,7 +1114,9 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     for i in range(3):
         reset_counts(nk, ntt_mod)
         bs.calls = 0
-        replays0 = bs.replays
+        replays0, seg0 = bs.replays, ex.replays
+        staged0, uploads0 = dict(ex.key_staging), galois.uploads
+        galois.peak_bytes = galois.device_bytes
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         vm.setInput(0, packed)
@@ -1074,15 +1125,32 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         torch.cuda.synchronize()
         r = dict(request_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
                  plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls,
-                 oracle_replays=bs.replays - replays0,
+                 oracle_replays=bs.replays - replays0, graph_replays=ex.replays - seg0,
+                 key_copies={k: ex.key_staging[k] - staged0[k] for k in staged0},
+                 lru_uploads=galois.uploads - uploads0, key_device_peak_bytes=galois.peak_bytes,
                  peak_bytes=torch.cuda.max_memory_allocated())
         logits = cnn_he.resnet_postprocess(res[0])
         r["rms"] = float(np.sqrt(np.mean((logits - want) ** 2)))
         requests.append(r)
+        kc = r["key_copies"]
         log(f"[resnet stream] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
             f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps ({r['oracle_replays']} "
-            f"oracle graph replays), NTT launches outside graphs {r['eager_ntt_launches']}, "
-            f"plain NTT calls {r['plain_ntt_calls']}, peak {r['peak_bytes']} bytes")
+            f"oracle graph replays), {r['graph_replays']} segment graph replays, NTT launches "
+            f"outside graphs {r['eager_ntt_launches']}, plain NTT calls "
+            f"{r['plain_ntt_calls']}, peak {r['peak_bytes']} bytes; keys copied into the arena: "
+            f"{kc['host']} from the host ({kc['host_bytes']} bytes), {kc['device']} from the "
+            f"LRU ({kc['device_bytes']} bytes); LRU uploads {r['lru_uploads']}; device key "
+            f"bytes at their peak {r['key_device_peak_bytes']} (budget {out['key_budget']})")
+        if r["graph_replays"] != cap["graphs"] or r["lru_uploads"]:
+            raise AssertionError(f"a streaming request left the graphs or read a key outside "
+                                 f"the arena: {r['graph_replays']} of {cap['graphs']} graphs "
+                                 f"replayed, {r['lru_uploads']} LRU uploads")
+        if kc["host"] + kc["device"] != cap["key_copies_planned"]:
+            raise AssertionError(f"a request copied {kc} keys, {cap['key_copies_planned']} "
+                                 "planned")
+        if r["key_device_peak_bytes"] > out["key_budget"]:
+            raise AssertionError(f"device key bytes {r['key_device_peak_bytes']} passed the "
+                                 f"budget {out['key_budget']}")
         if logits.shape != (10,) or not np.isfinite(logits).all():
             raise AssertionError(f"bad ResNet output {logits!r}")
         if not r["rms"] <= RMS_BAR_RESNET:
@@ -1096,6 +1164,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
             raise AssertionError("a streaming request captured graphs the load did not")
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
+    out["key_h2d_bytes_per_request"] = requests[-1]["key_copies"]["host_bytes"]
     out["resident_request_median_s"] = resident["request_median_s"]
     out["peak_bytes"] = max(r["peak_bytes"] for r in requests)
     out["resident_peak_bytes"] = resident["peak_bytes"]
@@ -1120,6 +1189,11 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
                                  "resident VM's")
     out["lru"] = dict(entries=len(ex._pt_dev), device_bytes=ex._pt_dev_bytes,
                       budget=ex._pt_budget)
+    out["key_device_peak_bytes"] = galois.peak_bytes
+    log(f"[resnet stream] device key bytes at their peak over the phase, per-op rerun "
+        f"included: {galois.peak_bytes} (budget {out['key_budget']})")
+    if galois.peak_bytes > out["key_budget"]:
+        raise AssertionError(f"device key bytes {galois.peak_bytes} passed the budget")
     shapes.stop()
 
     def request():
@@ -1133,6 +1207,12 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         raise AssertionError(f"the profiled streaming request: NTT {launches}, plain "
                              f"{prof['plain_ntt_calls']}")
     out["resident_busy_s"] = resident["busy_s"]
+    # the key copies into the arena, from pinned host memory
+    staging = [k for k in prof["by_kernel"] if k["name"].startswith("Memcpy HtoD (Pinned")]
+    out["key_staging_device_s"] = sum(k["device_s"] for k in staging)
+    log(f"[resnet stream] profiled request: idle share {prof['idle_share']}, key copies "
+        f"from pinned host memory {sum(k['count'] for k in staging)} taking "
+        f"{out['key_staging_device_s']:.4f} s of device time")
 
     # the decode of one request alone: every graph window's groups, as the
     # graphs run them
@@ -1281,6 +1361,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     want = deep_golden(x, expected["depth"])
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
+    kept = dict(vm=vm, x=x, want=want, graphs=ex.capture_stats["graphs"], requests=[])
     for i in range(3):
         reset_counts(nk, ntt_mod)
         calls0, n_keys0 = bs.calls, len(keys.galois)
@@ -1298,6 +1379,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
         r["rms"] = float(np.sqrt(np.mean((res - want) ** 2)))
         r["min_max"] = [float(want.min()), float(want.max())]
         requests.append(r)
+        kept["requests"].append((vm._arg_cts[0], ex._last_outputs[0]))
         log(f"[native] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
             f"(bar {RMS_BAR_NATIVE_DEEP}), {r['bootstraps']} native bootstraps, NTT launches "
             f"{r['ntt_launches']}, plain NTT calls {r['plain_ntt_calls']}, keys made "
@@ -1407,7 +1489,131 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
                              f"{prof_b['plain_ntt_calls']}")
     out["peak_bytes"] = max([out["peak_load_bytes"], sb["peak_bytes"]]
                             + [r["peak_bytes"] for r in requests])
-    return out, req_launches, boot_launches
+    return out, req_launches, boot_launches, kept
+
+
+def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
+    """(d) the deep program under the 16 GiB plan: the resident native VM
+    loads it again under DACAPO_TPU_HBM_BYTES = NATIVE_PLAN_BYTES (its
+    bootstrapper, with the diagonals it encoded, is the scheme's, so the
+    warm-up makes nothing new). The new executor puts the galois keys under
+    a budget (their device copies go to the host), the load pins their host
+    copies and makes the key arena of the graph windows; the native
+    bootstraps now read their keys through the key store's LRU from pinned
+    host memory. The resident VM's three request ciphertexts are served
+    again (run_encrypted): RMS, 2 native bootstraps, every graph window
+    replayed, the planned key copies, device key bytes within the budget,
+    outputs bit-equal to the resident executor's; the bootstraps are timed;
+    one request profiled. Returns (results, the NTT calls of the profiled
+    request on the device)."""
+    out = dict(hbm_bytes=NATIVE_PLAN_BYTES)
+    vm = resident["vm"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["DACAPO_TPU_HBM_BYTES"] = str(NATIVE_PLAN_BYTES)
+    try:
+        t0 = time.perf_counter()
+        vm.load(*files["Deep"])
+        out["load_s"] = time.perf_counter() - t0
+    finally:
+        del os.environ["DACAPO_TPU_HBM_BYTES"]
+    ex, bs, galois = vm.executor, vm.executor.bootstrapper, vm.scheme.keys.galois
+    cap = ex.capture_stats
+    out.update(load_parts_s=vm.load_seconds, key_budget=galois.budget,
+               key_bytes_counted=ex.key_bytes, galois_keys=len(galois), capture=cap,
+               pinned_bytes=sum(t.nbytes for t in galois._slabs or ()),
+               after_load_bytes=torch.cuda.memory_allocated(),
+               peak_load_bytes=torch.cuda.max_memory_allocated())
+    log(f"[native budget] DACAPO_TPU_HBM_BYTES={NATIVE_PLAN_BYTES}: galois keys counted "
+        f"{ex.key_bytes} bytes, key budget {galois.budget}; load {out['load_s']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in vm.load_seconds.items())
+        + f"); {cap['graphs']} graphs, arena {cap['key_slots']} slots "
+        f"({cap['key_arena_bytes']} bytes), {cap['key_copies_planned']} key copies a request "
+        f"planned; pinned host keys {out['pinned_bytes']} bytes; {out['after_load_bytes']} "
+        f"bytes allocated after load, peak {out['peak_load_bytes']}")
+    if (galois.budget != int(KEY_BUDGET_FRAC * NATIVE_PLAN_BYTES) or not cap["key_slots"]
+            or cap["graphs"] != resident["graphs"] or "capture" not in vm.load_seconds):
+        raise AssertionError(f"the deep program under the 16 GiB plan: key budget "
+                             f"{galois.budget}, {cap}, resident graphs {resident['graphs']}")
+
+    boot_s = []
+    native = bs.bootstrap
+
+    def timed_bootstrap(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = native(*args)
+        torch.cuda.synchronize()
+        boot_s.append(time.perf_counter() - t0)
+        return res
+
+    bs.bootstrap = timed_bootstrap
+    requests = []
+    try:
+        for i, (args, want_outs) in enumerate(resident["requests"]):
+            reset_counts(nk, ntt_mod)
+            calls0, replays0 = bs.calls, ex.replays
+            staged0, uploads0 = dict(ex.key_staging), galois.uploads
+            galois.peak_bytes = galois.device_bytes
+            boot_s.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs, _ = ex.run_encrypted([args])
+            torch.cuda.synchronize()
+            r = dict(request_s=time.perf_counter() - t0, bootstrap_s=list(boot_s),
+                     bootstraps=bs.calls - calls0, graph_replays=ex.replays - replays0,
+                     ntt_launches=dict(nk.LAUNCHES), plain_ntt_calls=dict(ntt_mod.CALLS),
+                     key_copies={k: ex.key_staging[k] - staged0[k] for k in staged0},
+                     lru_uploads=galois.uploads - uploads0,
+                     lru_upload_bytes=(galois.uploads - uploads0) * vm.scheme.galois_key_bytes(),
+                     key_device_peak_bytes=galois.peak_bytes,
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     equals_resident=all(torch.equal(a, b) for a, b in zip(outs, want_outs)))
+            res = ex.decrypt_outputs()[0]
+            r["rms"] = float(np.sqrt(np.mean((res - resident["want"]) ** 2)))
+            requests.append(r)
+            kc = r["key_copies"]
+            log(f"[native budget] request {i} {r['request_s']:.3f} s: rms {r['rms']:.4e} (bar "
+                f"{RMS_BAR_NATIVE_DEEP}), {r['bootstraps']} native bootstraps of "
+                + ", ".join(f"{t:.3f}" for t in r["bootstrap_s"])
+                + f" s, {r['graph_replays']} graph replays, keys copied into the arena "
+                f"{kc['host'] + kc['device']}, LRU uploads {r['lru_uploads']} "
+                f"({r['lru_upload_bytes']} bytes), device key bytes at their peak "
+                f"{r['key_device_peak_bytes']}, peak {r['peak_bytes']} bytes; outputs bit-equal "
+                f"to the resident VM's: {r['equals_resident']}")
+            if res.shape != resident["x"].shape or not np.isfinite(res).all():
+                raise AssertionError("bad output of the deep program under the budget")
+            if not r["rms"] <= RMS_BAR_NATIVE_DEEP or not r["equals_resident"]:
+                raise AssertionError(f"the deep program under the budget: rms {r['rms']}, "
+                                     f"bit-equal to the resident VM {r['equals_resident']}")
+            if (r["bootstraps"] != 2 or r["graph_replays"] != cap["graphs"]
+                    or kc["host"] + kc["device"] != cap["key_copies_planned"]):
+                raise AssertionError(f"the deep program under the budget: {r}")
+            if r["key_device_peak_bytes"] > galois.budget:
+                raise AssertionError(f"device key bytes {r['key_device_peak_bytes']} passed "
+                                     f"the budget {galois.budget}")
+            if min(r["ntt_launches"].values()) <= 0 or any(r["plain_ntt_calls"].values()):
+                raise AssertionError(f"the NTT kernel did not carry the request: {r}")
+    finally:
+        del bs.bootstrap
+    out["requests"] = requests
+    out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
+    out["bootstrap_median_s"] = statistics.median(t for r in requests for t in r["bootstrap_s"])
+    args = resident["requests"][0][0]
+    prof = out["profiled_request"] = profile_request(
+        torch, lambda: ex.run_encrypted([args]), "native budget", ex, nk, ntt_mod, cpu=False,
+        trace_loss_ok=True)
+    staging = [k for k in prof["by_kernel"] if k["name"].startswith("Memcpy HtoD (Pinned")]
+    out["key_upload_device_s"] = sum(k["device_s"] for k in staging)
+    log(f"[native budget] median {out['request_median_s']:.3f} s, bootstrap median "
+        f"{out['bootstrap_median_s']:.3f} s; profiled request: idle share "
+        f"{prof['idle_share']}, key uploads from pinned host memory "
+        f"{sum(k['count'] for k in staging)} taking {out['key_upload_device_s']:.4f} s of "
+        "device time")
+    if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+        raise AssertionError(f"the profiled deep request under the budget: NTT "
+                             f"{prof['ntt_launches']}, plain {prof['plain_ntt_calls']}")
+    return out, prof["ntt_launches"]
 
 
 def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
@@ -1637,29 +1843,32 @@ def basic_batch(np, torch, HEVM, full, test, nt, nk, ntt_mod, keydir, cst, hevm)
         raise AssertionError(f"the profiled basic batch: NTT {prof['ntt_launches']}, plain "
                              f"{prof['plain_ntt_calls']}")
     out["streamed"] = basic_batch_streamed(torch, HEVM, full.profile, keydir, cst, hevm, args,
-                                           outs, meta, nk, ntt_mod)
+                                           outs, meta, nk, ntt_mod, full.executor.plain_bytes)
     return out
 
 
 def basic_batch_streamed(torch, HEVM, profile, keydir, cst, hevm, args, outs, meta, nk,
-                         ntt_mod):
-    """The basic batch on a streaming HEVM: a second VM on the row's keyset
-    loads the program, and its executor is preprocessed again under a
-    plaintext budget of half its plaintext bytes (the row's galois keys
-    outweigh its plaintexts 15 to 1, so no DACAPO_TPU_HBM_BYTES streams the
-    plaintexts without also budgeting the keys, which refuses graphs). Its
-    batch graphs of BASIC_BATCH, which decode in-graph, must give the
-    resident batch's output ciphertexts byte for byte; one request timed,
-    one profiled."""
-    vm = HEVM(profile, keyset_dir=keydir)
-    vm.load(cst, hevm)
+                         ntt_mod, resident_bytes):
+    """The basic batch on a streaming HEVM, as deployed: a second VM on the
+    row's keyset, built and loaded under DACAPO_TPU_HBM_BYTES =
+    BASIC_PLAN_BYTES, streams its plaintexts and budgets its galois keys
+    (the row's keys outweigh its plaintexts 15 to 1: every window reads all
+    twelve, so its key arena holds them all, past the budget). Its batch
+    graphs of BASIC_BATCH, which decode in-graph and read their keys from
+    the arena, must give the resident batch's output ciphertexts byte for
+    byte; one request timed, one profiled."""
+    os.environ["DACAPO_TPU_HBM_BYTES"] = str(BASIC_PLAN_BYTES)
+    try:
+        vm = HEVM(profile, keyset_dir=keydir)
+        vm.load(cst, hevm)
+    finally:
+        del os.environ["DACAPO_TPU_HBM_BYTES"]
     ex = vm.executor
-    resident_bytes = ex.plain_bytes
-    ex._pt_budget = resident_bytes // 2
-    ex.preprocess()
-    if not ex.streaming:
-        raise AssertionError(f"{BASIC_BATCH_ROW} did not stream under a budget of half its "
-                             "plaintext bytes")
+    galois = vm.scheme.keys.galois
+    if not ex.streaming or galois.budget is None or not ex.key_arena():
+        raise AssertionError(f"{BASIC_BATCH_ROW} under DACAPO_TPU_HBM_BYTES="
+                             f"{BASIC_PLAN_BYTES}: streaming {ex.streaming}, key budget "
+                             f"{galois.budget}")
     shapes = DecodeShapes(vm.scheme.ev)
     shapes.start()
     try:
@@ -1675,7 +1884,9 @@ def basic_batch_streamed(torch, HEVM, profile, keydir, cst, hevm, args, outs, me
     finally:
         shapes.stop()
     equal = got_meta == meta and all(torch.equal(a, b) for a, b in zip(got, outs))
-    out = dict(resident_plaintext_bytes=resident_bytes, plaintext_budget_bytes=ex._pt_budget,
+    out = dict(hbm_bytes=BASIC_PLAN_BYTES, key_budget=galois.budget,
+               load_parts_s=vm.load_seconds,
+               resident_plaintext_bytes=resident_bytes, plaintext_budget_bytes=ex._pt_budget,
                pool_bytes=ex.pool_bytes, graphs=graphs, capture_s=capture_s,
                capture=ex.batch_capture_stats, batch_s=batch_s,
                plain_ntt_calls=dict(ntt_mod.CALLS), rows_equal_resident=equal,
@@ -1683,6 +1894,11 @@ def basic_batch_streamed(torch, HEVM, profile, keydir, cst, hevm, args, outs, me
     prof = out["profiled_request"] = profile_request(
         torch, lambda: ex.run_encrypted_batch(args), f"basic {BASIC_BATCH_ROW} streamed batch",
         ex, nk, ntt_mod, cpu=False)
+    cap = out["capture"]
+    log(f"[basic batch] streamed under DACAPO_TPU_HBM_BYTES={BASIC_PLAN_BYTES}: galois keys "
+        f"{ex.key_bytes} bytes, key budget {galois.budget}, arena {cap['key_slots']} slots "
+        f"({cap['key_arena_bytes']} bytes), {cap['key_copies_planned']} key copies a request "
+        f"planned")
     log(f"[basic batch] streamed: compact pool {ex.pool_bytes} bytes (resident "
         f"{resident_bytes}, budget {ex._pt_budget}); capture {capture_s:.3f} s ({graphs} "
         f"graphs, {out['capture']['decode_rows']} rows decoded in-graph a request); a batch "
@@ -1806,8 +2022,11 @@ def main():
         out = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
         with tempfile.TemporaryDirectory(prefix="hevm_keys_n15b_") as kd:
             out["tpu_n15b"], by_path["native_deep_tpu_n15b_request"], \
-                by_path["native_bootstrap_tpu_n15b"] = serve_native(
+                by_path["native_bootstrap_tpu_n15b"], kept = serve_native(
                     np, torch, HEVM, nk, ntt_mod, params, kd, files)
+            out["tpu_n15b_budget"], by_path["native_deep_keystream_tpu_n15b_request"] = \
+                serve_native_budget(np, torch, nk, ntt_mod, files, kept)
+            del kept
         return out
 
     report["native"] = timed("native", native)

@@ -26,18 +26,36 @@ class GaloisStore:
     once, evicted LRU. With `budget=None` entries stay on the device and it
     behaves like a plain dict.
 
+    `reserved` device key bytes are held outside the LRU (the executor's
+    slot arena of its graph windows, the conjugation key): the LRU evicts
+    while its bytes plus those pass the budget, and `peak_bytes` is the
+    most the two came to. `pin_host` moves the host copies into pinned
+    slabs (on the card), from which the executor stages keys into its arena
+    and the LRU uploads without blocking.
+
     `generation` grows whenever a device key tensor is dropped or replaced:
-    a CUDA graph reads the keys at the addresses it was captured with
-    (vm/executor.py recaptures when it changed).
+    a CUDA graph that reads the LRU's keys reads them at the addresses it
+    was captured with (vm/executor.py recaptures when it changed).
+    `version(st)` grows when key `st` itself is replaced: the executor
+    stages a replaced key into its arena again.
     """
+
+    SLAB_BYTES = 1 << 30     # a pinned slab's size, at most (a power of two)
+    SLAB_KEYS = 64           # and its keys, at most
 
     def __init__(self, device, budget=None):
         self.device = torch.device(device)
         self.budget = budget
-        self._host = {}              # steps -> np.ndarray uint32 (authoritative)
+        self._host = {}              # steps -> np.ndarray uint32, or a slab view (authoritative)
         self._dev = OrderedDict()    # steps -> int32 tensor (LRU)
         self._dev_bytes = 0
         self.generation = 0
+        self.reserved = 0
+        self.peak_bytes = 0
+        self.uploads = 0             # host-to-device copies of the LRU
+        self._versions = {}
+        self._slabs = None           # [slab tensor [keys, ...]] once pin_host ran
+        self._free = []              # unused slab rows
 
     def _drop(self, st):
         """Remove the device copy of key `st` (if any)."""
@@ -45,6 +63,30 @@ class GaloisStore:
         if old is not None:
             self._dev_bytes -= old.nbytes
             self.generation += 1
+
+    def _fit(self, keep=0):
+        """Evict the oldest device copies while they and the reserved bytes
+        pass the budget, `keep` of them staying however large."""
+        if self.budget is not None:
+            while self._dev_bytes + self.reserved > self.budget and len(self._dev) > keep:
+                st = next(iter(self._dev))
+                if st not in self._host:       # never drop a key's only copy
+                    self._host[st] = self._host_copy(st, self._dev[st])
+                self._drop(st)
+        self.peak_bytes = max(self.peak_bytes, self.device_bytes)
+
+    @property
+    def device_bytes(self):
+        """Device key bytes: the LRU's and the reserved."""
+        return self._dev_bytes + self.reserved
+
+    def reserve(self, nbytes):
+        """Hold `nbytes` of the budget outside the LRU, which evicts to fit."""
+        self.reserved = nbytes
+        self._fit()
+
+    def version(self, st):
+        return self._versions.get(st, 0)
 
     def set_budget(self, budget):
         """Switch to host-backed mode (or tighten the budget): device copies
@@ -54,11 +96,45 @@ class GaloisStore:
             return
         for st, arr in list(self._dev.items()):
             if st not in self._host:
-                self._host[st] = to_host(arr)
-        while self._dev_bytes > budget and self._dev:
-            self._drop(next(iter(self._dev)))
+                self._host[st] = self._host_copy(st, arr)
+        self._fit()
+
+    def pin_host(self):
+        """Keep every host copy, now and later, in slabs of SLAB_BYTES at
+        most, page-locked on the card: one slab holds many keys, where a
+        pinned tensor each would round every key up to a power of two."""
+        if self._slabs is None:
+            self._slabs = []
+            for st in list(self._host):
+                self._host[st] = self._host_copy(st, self._host.pop(st))
+
+    def _host_copy(self, st, arr):
+        """The host form of key `st`: numpy uint32, or once pin_host ran a
+        slab row (the key's own row when it is replaced)."""
+        if self._slabs is None:
+            return to_host(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+        src = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int32))
+        row = self._host.get(st)
+        if row is None or not isinstance(row, torch.Tensor):
+            if not self._free:
+                per = max(1, min(self.SLAB_KEYS, self.SLAB_BYTES // src.nbytes))
+                slab = torch.empty((per,) + tuple(src.shape), dtype=torch.int32,
+                                   pin_memory=self.device.type == "cuda")
+                self._slabs.append(slab)
+                self._free.extend(slab[i] for i in range(per - 1, -1, -1))
+            row = self._free.pop()
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)    # no copy from the old key in flight
+        row.copy_(src)
+        return row
+
+    def _replaced(self, st):
+        if st in self:
+            self._versions[st] = self.version(st) + 1
 
     def __setitem__(self, st, arr):
+        self._replaced(st)
         if self.budget is None:
             dev = arr if isinstance(arr, torch.Tensor) else to_dev(arr, self.device)
             dev = dev.to(self.device)
@@ -66,26 +142,39 @@ class GaloisStore:
             self._dev[st] = dev
             self._dev_bytes += dev.nbytes
             self._host.pop(st, None)
+            self._fit()
         else:
             self.put_host(st, arr)
 
     def put_host(self, st, arr):
         """Insert a key host-side only: device residency is decided at first
         use, under whatever budget applies then."""
-        self._host[st] = to_host(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+        self._replaced(st)
+        self._host[st] = self._host_copy(st, arr)
         self._drop(st)
+
+    def stage_source(self, st):
+        """(tensor, on the device) to copy key `st` from without touching
+        the LRU: its device copy when it has one, else its host copy."""
+        dev = self._dev.get(st)
+        if dev is not None:
+            return dev, True
+        host = self._host[st]
+        return (host if isinstance(host, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(host).view(np.int32))), False
 
     def __getitem__(self, st):
         dev = self._dev.get(st)
         if dev is not None:
             self._dev.move_to_end(st)
             return dev
-        dev = to_dev(self._host[st], self.device)
+        host = self._host[st]
+        dev = (host.to(self.device, non_blocking=True) if isinstance(host, torch.Tensor)
+               else to_dev(host, self.device))
+        self.uploads += 1
         self._dev[st] = dev
         self._dev_bytes += dev.nbytes
-        if self.budget is not None:
-            while self._dev_bytes > self.budget and len(self._dev) > 1:
-                self._drop(next(iter(self._dev)))
+        self._fit(keep=1)
         return dev
 
     def __contains__(self, st):
@@ -102,7 +191,11 @@ class GaloisStore:
 
     def peek_host(self, st):
         """Host uint32 copy without promoting the key to the device."""
-        return self._host[st] if st in self._host else to_host(self._dev[st])
+        host = self._host.get(st)
+        if host is None:
+            return to_host(self._dev[st])
+        # a copy: a slab row is rewritten in place when its key is replaced
+        return to_host(host).copy() if isinstance(host, torch.Tensor) else host
 
 
 @dataclass

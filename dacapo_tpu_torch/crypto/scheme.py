@@ -58,7 +58,9 @@ class Scheme:
         self.keygen.extend_galois(self.keys, rot_steps)
 
     def set_key_budget(self, budget_bytes):
-        """Bound device-resident galois-key bytes (host-backed LRU beyond)."""
+        """Bound device-resident galois-key bytes (host-backed LRU beyond;
+        the executor's graph windows read theirs from its slot arena, which
+        shares the budget and is made again after a change)."""
         self.keys.galois.set_budget(budget_bytes)
 
     def galois_key_bytes(self):
@@ -156,3 +158,8 @@ class Scheme:
             return a
         gk = self.keys.galois[steps]
         return Ciphertext(self.ev.rotate(a.data, a.nl, steps, gk), a.scale)
+
+    def conjugate(self, a: Ciphertext) -> Ciphertext:
+        """Complex-conjugate the slots; makes the conjugation key if missing."""
+        self.keygen.ensure_conj(self.keys)
+        return Ciphertext(self.ev.conjugate(a.data, a.nl, self.keys.conj), a.scale)

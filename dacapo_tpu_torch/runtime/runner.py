@@ -47,7 +47,11 @@ DACAPO_TPU_HBM_BYTES when set, else the card's total (on the CPU: 16 GiB
 for N >= 2^15). `DACAPO_TPU_HBM_BYTES=17179869184` picks the JAX package's
 16 GiB plan, under which ResNet-20's plaintexts stream from the compact
 device pool; `executor.streaming` says which mode `load` chose, and its
-part of `load_seconds` is "compact_encode" instead of "preencode".
+part of `load_seconds` is "compact_encode" instead of "preencode". Keys
+past their budget stay in pinned host memory (`load_seconds["key_pin"]`),
+and the segment path reads them from a slot arena on the device that each
+window's keys are copied into before it runs
+(`load_seconds["key_arena"]`: made and filled for the first request).
 
 `jit` selects the executor's path (vm/executor.py): "auto" (the default) or
 "segment" runs the segment plan, as CUDA graphs that `load` captures on the
@@ -262,11 +266,17 @@ class HEVM:
                                      host_rng=self.host_rng)
         self.executor.setDebug(self._debug)
         lap()
+        parts = ["read", "galois_keygen"]
+        galois = self.scheme.keys.galois
+        if galois.budget is not None:
+            # keys past the budget: their host copies into pinned slabs
+            galois.pin_host()
+            lap()
+            parts.append("key_pin")
         self.executor.preprocess()
         lap()
         # a streaming executor's plaintexts are the compact pool's encode
-        parts = ["read", "galois_keygen",
-                 "compact_encode" if self.executor.streaming else "preencode"]
+        parts.append("compact_encode" if self.executor.streaming else "preencode")
         if self.device.type == "cuda" and self.executor.warm_bootstraps():
             lap()
             parts.append("bootstrap_warmup")
@@ -278,6 +288,11 @@ class HEVM:
             keymod.save_keyset(self.scheme.keys, self.keyset_dir, skip_existing=True)
             lap()
             parts.append("keyset_write")
+        if galois.budget is not None and self.jit is not False:
+            # the graph windows' key slots, filled for the first request
+            self.executor.key_arena()
+            lap()
+            parts.append("key_arena")
         if self.device.type == "cuda" and self.jit is not False:
             self.executor.precompile_segments()
             lap()

@@ -56,6 +56,26 @@ window; the values are the same). The per-op path and tiny windows read
 through an LRU of decoded planes under the budget (`_plain`,
 `_plain_prefetch` for a fused bank's masks, `_pt_insert`).
 
+Galois keys (reference :60-97, `getgk` :317). Past KEY_BUDGET_FRAC of
+the device memory (the port's `key_bytes` counts the native bootstrap's
+keys and the conjugation key too) they live in host memory behind the key
+store's device LRU (crypto/keys.GaloisStore), as in the reference, where
+each window gets its keys as arguments. A graph bakes in the address of
+every key it reads and an LRU eviction frees it, so under a budget each
+window of at least SEGMENT_MIN_OPS ops reads its keys from fixed slots of
+one device arena [S, dnum, 2, num_all, N] instead (`_key_arena`), on the
+single and the batch path alike: before the window runs, each key whose
+slot holds another one is copied in (`_stage_keys`), from the LRU's device
+copy or from the store's pinned host slabs, on the stream the replays run
+on, so a slot is never overwritten while an earlier window still reads it.
+The slots are planned at capture from the request's key sequence with
+Belady's rule (`plan_key_slots`; a plain LRU over a cyclic sequence longer
+than its capacity misses on every access); the arena and the LRU share the
+budget (`GaloisStore.reserve`), and the LRU serves what runs eagerly: the
+per-op path, tiny windows, the native bootstrap. On the CPU the same slot
+map and staging run, eagerly. Without a budget the graphs read the resident
+keys in place: no arena, no copy.
+
 Not ported: `_seg_struct_key` (structurally equal windows sharing one
 compiled function): a graph bakes in the addresses of the resident galois
 keys and plaintexts, so sharing one would mean copying those into static
@@ -65,10 +85,10 @@ planes passed into the window) cannot feed a graph, because an LRU
 eviction frees the planes whose addresses a graph baked in; streaming
 windows always decode in-graph. `SYNC_EVERY` bounds the reference's host
 uploads in flight (pinned streamed keys and plaintexts of every enqueued
-window); here no window uploads from the host: the pool is on the device
-before the first request, and PyTorch copies pageable host memory (a
-budgeted galois key) before the call returns, so nothing stays in flight.
-The mesh (parallel/mesh.py) is not ported.
+window); here the plaintext pool is on the device before the first
+request, and the key copies in flight are bounded by the arena's slots:
+stream order makes a copy wait for the windows that read its slot. The
+mesh (parallel/mesh.py) is not ported.
 
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
@@ -80,6 +100,7 @@ import math
 import os
 import sys
 import time
+from bisect import bisect_right
 from collections import OrderedDict
 
 import numpy as np
@@ -95,6 +116,85 @@ from .hevm import (
     OP_UPSCALE, OP_ADDCC, OP_ADDCP, OP_MULCC, OP_MULCP, OP_BOOTSTRAP, OP_ALLOC,
 )
 from .steer import steer_scales
+
+
+def plan_key_slots(seq, n_slots):
+    """Slots for the galois keys of a request's graph windows, planned from
+    the request's key sequence with Belady's rule: on a miss, the slot of
+    the key whose next use lies furthest ahead, the request repeating,
+    which copies the fewest keys for a cache of n_slots. seq: each graph
+    window's keys, in request order (distinct within a window, at most
+    n_slots of them). Periods are planned until the slots hold at the end
+    of one what they held at its start. Returns (one {key: slot} per
+    window, what each slot holds when a request starts (a key or None),
+    the keys copied into a slot a request at that fixed point)."""
+    period = len(seq)
+    uses = {}
+    for p, ks in enumerate(seq):
+        for k in ks:
+            uses.setdefault(k, []).append(p)
+
+    def next_use(k, p):
+        u = uses[k]
+        i = bisect_right(u, p)
+        return u[i] if i < len(u) else u[0] + period
+
+    held, where = [None] * n_slots, {}
+    for _ in range(8):
+        start = list(held)
+        maps = []
+        for p, ks in enumerate(seq):
+            m = {}
+            for k in ks:
+                s = where.get(k)
+                if s is None:
+                    if None in held:
+                        s = held.index(None)
+                    else:
+                        s = max((i for i in range(n_slots) if held[i] not in ks),
+                                key=lambda i: (next_use(held[i], p), -i))
+                        del where[held[s]]
+                    held[s], where[k] = k, s
+                m[k] = s
+            maps.append(m)
+        if held == start:
+            break
+    # copies of this fixed map a request: where a slot's key differs from
+    # the one it held before, cyclically
+    by_slot = [[] for _ in range(n_slots)]
+    for m in maps:
+        for k, s in m.items():
+            by_slot[s].append(k)
+    copies = sum(sum(a != b for a, b in zip(ks, ks[-1:] + ks[:-1])) for ks in by_slot)
+    return maps, held, copies
+
+
+def key_slot_count(seq, budget, key_bytes, reserved=0):
+    """The arena's slots for a request's key sequence `seq` (plan_key_slots)
+    under a galois-key budget: as many keys as the budget holds besides
+    `reserved` bytes and one key of room for the LRU, at most the distinct
+    keys of `seq`, at least the most one window reads (which may pass the
+    budget)."""
+    cap = (budget - reserved) // key_bytes - 1
+    return max(max(map(len, seq), default=0), min(len({k for ks in seq for k in ks}), cap))
+
+
+def lru_key_copies(seq, n_slots):
+    """The keys a plain LRU of n_slots keys copies a request on the same
+    sequence (the second of two requests from empty: its steady state)."""
+    lru = OrderedDict()
+    for _ in range(2):
+        copies = 0
+        for ks in seq:
+            for k in ks:
+                if k in lru:
+                    lru.move_to_end(k)
+                else:
+                    copies += 1
+                    lru[k] = None
+                    if len(lru) > n_slots:
+                        lru.popitem(last=False)
+    return copies
 
 
 class HEVMExecutor:
@@ -138,6 +238,11 @@ class HEVMExecutor:
         self._seg_plan = None
         self._captured = None   # (what the graphs were captured for, {wi: graph})
         self._captured_batch = None   # the same for one batch size
+        self._arena = None      # galois-key slots of the graph windows (under a budget)
+        self._arena_serial = 0
+        # keys copied into arena slots, from the host and from the LRU's
+        # device copies: counts and bytes, over all requests
+        self.key_staging = dict(host=0, host_bytes=0, device=0, device_bytes=0)
         self._segprof = False
         self.seg_profile = None
         self.capture_stats = None
@@ -411,19 +516,21 @@ class HEVMExecutor:
         return torch.cat([full[:nl], full[nl_enc: nl_enc + alpha]])
 
     # ------------------------------------------------------------ dispatch
-    def _exec_stream(self, ops, ciphers, meta, out_regs, getplain=None):
+    def _exec_stream(self, ops, ciphers, meta, out_regs, getplain=None, getgk=None):
         """Interpret the instruction stream over device tensors. Mutates
         `ciphers`/`meta`; returns the tensors of `out_regs`. getplain(reg,
         nl): a plaintext's planes; by default `_plain` (resident, or the
         LRU with a fused bank's masks prefetched), else a window's decoded
-        planes (`_seg_body`).
+        planes (`_seg_body`). getgk(steps): a galois key; by default the
+        key store (resident, or its LRU), else a window's arena slots.
 
         Rotations run LAZILY: every `rotatec` of the same source joins a
         pending bank, flushed as ONE hoisted batched rotation
         (Evaluator.rotate_batch) the first time any of its results is read.
         """
         ev = self.ev
-        galois = self.s.keys.galois
+        if getgk is None:
+            getgk = self.s.keys.galois.__getitem__
         rlk = self.s.keys.rlk
         prefetch = None
         if getplain is None:
@@ -437,7 +544,7 @@ class HEVMExecutor:
             entries = bank["entries"]
             steps = [st for _, st in entries]
             out = ev.rotate_batch(bank["src"], bank["nl"], steps,
-                                  [galois[st] for st in steps])
+                                  [getgk(st) for st in steps])
             for k, (dst, _) in enumerate(entries):
                 ciphers[dst] = out[k]
                 del bank_of_dst[dst]
@@ -487,7 +594,7 @@ class HEVMExecutor:
                 if op.src >= 0:
                     src = materialize(op.src)
                     shifts = list(op.steps)
-                    gks = [galois[st] for st in op.steps]
+                    gks = [getgk(st) for st in op.steps]
                     pts = [self._plain_rows_qp(getplain(r, None), r, nl)
                            for r in op.pt_regs]
                     dkey = (op.src, nl)
@@ -798,29 +905,29 @@ class HEVMExecutor:
         the graphs of the batch path over B ciphertexts (held apart from
         the single-request graphs, one batch size at a time). Returns the
         number of graphs: 0 on the CPU, where the plan runs eagerly.
-        Raises if a capture fails or the galois keys are not resident."""
+        Raises if a capture fails."""
         return len(self._graphs(arg_meta or self._arg_meta(), batch))
 
     def _graphs(self, arg_meta, batch=None):
         """{window index: graph record} of the segment plan for arguments of
         this metadata and batch size (None: a single request; {} on the
         CPU). The graphs are captured at first use and again whenever the
-        key set or a device key tensor changed since
-        (GaloisStore.generation): a graph reads the keys at the addresses
-        it was captured with."""
+        key set changed, or what the graphs read the keys from: without a
+        budget the resident device key tensors (GaloisStore.generation: a
+        graph reads the keys at the addresses it was captured with), under
+        one the arena (made again when the budget changes; an LRU eviction
+        changes nothing a graph reads, and a replaced key is staged)."""
         if self.s.device.type != "cuda":
             return {}
         slot = "_captured" if batch is None else "_captured_batch"
         keys = self.s.keys
-        if keys.galois.budget is not None:
-            self._captured = self._captured_batch = None
-            raise RuntimeError(
-                "galois keys are streamed from host memory under a device budget, "
-                "and a CUDA graph bakes in their addresses: run with jit=False")
+        arena = self._key_arena()
+        dep = (("arena", arena["serial"]) if arena is not None
+               else ("resident", keys.galois.generation))
         meta = (tuple(tuple(m) for m in arg_meta), batch)
         hit = getattr(self, slot)
         if (hit is not None and hit[0] == meta and hit[1] is keys
-                and hit[2] is keys.galois and hit[3] == keys.galois.generation):
+                and hit[2] is keys.galois and hit[3] == dep):
             return hit[4]
         setattr(self, slot, None)             # free the old graphs first
         plan = self._segment_plan()
@@ -828,8 +935,83 @@ class HEVMExecutor:
                   else self._capture(plan, arg_meta, batch))
         # the key objects themselves (not ids): held here, they outlive the
         # graphs that read them
-        setattr(self, slot, (meta, keys, keys.galois, keys.galois.generation, graphs))
+        setattr(self, slot, (meta, keys, keys.galois, dep, graphs))
         return graphs
+
+    def _graph_window(self, info):
+        """A window that runs as one graph on the card (and through
+        `_seg_body` on the CPU): a segment of at least SEGMENT_MIN_OPS ops."""
+        return info["kind"] == "seg" and len(info["ops"]) >= self.SEGMENT_MIN_OPS
+
+    def key_arena(self):
+        """Make the galois-key slot arena now (HEVM.load does, under a key
+        budget) and return its number of slots: 0 without a budget."""
+        arena = self._key_arena()
+        return 0 if arena is None else len(arena["held"])
+
+    def _key_arena(self):
+        """The arena of the graph windows' galois keys under a budget
+        (module docstring), made at first use and again when the budget or
+        the key store changed; None without a budget. Its slots are
+        `key_slot_count`'s, with the conjugation key of a native bootstrap
+        reserved beside them (an arena past the budget is said on stderr).
+        On making it the host keys are pinned, the LRU evicts to leave the
+        arena its bytes, and each slot gets the key it holds when a request
+        starts."""
+        galois = self.s.keys.galois
+        old = self._arena
+        if old is not None and old["galois"] is galois and old["budget"] == galois.budget:
+            return old
+        if old is not None:
+            self._captured = self._captured_batch = None     # graphs over the old arena
+            self._arena = None
+            old["galois"].reserve(0)
+        if galois.budget is None:
+            return None
+        galois.pin_host()
+        plan = self._segment_plan()
+        wins = [wi for wi, info in enumerate(plan)
+                if self._graph_window(info) and info["rot_steps"]]
+        seq = [plan[wi]["rot_steps"] for wi in wins]
+        kb = self.s.galois_key_bytes()
+        conj = kb if isinstance(self.bootstrapper, NativeBootstrapper) else 0
+        n = key_slot_count(seq, galois.budget, kb, conj)
+        if (n + 1) * kb + conj > galois.budget:
+            print(f"[hevm] a window reads {n} galois keys: the arena's {n * kb} bytes "
+                  f"leave the LRU less than one key of the budget {galois.budget}",
+                  file=sys.stderr)
+        maps, start, copies = plan_key_slots(seq, n)
+        cfg = self.s.ctx.config
+        data = torch.empty((n, cfg.dnum, 2, cfg.num_all, self.s.ctx.n),
+                           dtype=torch.int32, device=galois.device)
+        galois.reserve(n * kb + conj)
+        self._arena_serial += 1
+        arena = self._arena = dict(
+            galois=galois, budget=galois.budget, serial=self._arena_serial,
+            slots=dict(zip(wins, maps)), data=data, held=[None] * n,
+            copies=copies, lru_copies=lru_key_copies(seq, n))
+        for s, st in enumerate(start):
+            if st is not None:
+                self._stage(arena, s, st)
+        return arena
+
+    def _stage(self, arena, s, st):
+        """Copy key `st` into slot s unless it holds it (this version)."""
+        galois = self.s.keys.galois
+        want = (st, galois.version(st))
+        if arena["held"][s] != want:
+            src, on_device = galois.stage_source(st)
+            arena["data"][s].copy_(src, non_blocking=True)
+            arena["held"][s] = want
+            kind = "device" if on_device else "host"
+            self.key_staging[kind] += 1
+            self.key_staging[kind + "_bytes"] += src.nbytes
+
+    def _stage_keys(self, wi):
+        """Before window wi runs under a budget: its keys into its slots."""
+        arena = self._arena
+        for st, s in arena["slots"].get(wi, {}).items():
+            self._stage(arena, s, st)
 
     def _capture(self, plan, arg_meta, batch=None):
         """Capture walk over the plan with _meta_step: one graph for every
@@ -853,7 +1035,7 @@ class HEVMExecutor:
         graphs = {}
         decode_rows = []      # rows each graph decodes
         for wi, info in enumerate(plan):
-            if info["kind"] == "seg" and len(info["ops"]) >= self.SEGMENT_MIN_OPS:
+            if self._graph_window(info):
                 if self._streaming:
                     decode_rows.append(sum(len(rows) * len(regs) for rows, regs, _
                                            in self._seg_pt_groups(wi, info)))
@@ -868,9 +1050,14 @@ class HEVMExecutor:
                 self._meta_step(op, meta)
             for r in info["dead"]:
                 graph_out.pop(r, None)
+        arena = self._arena
         stats = dict(
             windows=len(plan), graphs=len(graphs),
-            **{k: sum(g[k] for g in graphs.values()) for k in ("warmup_s", "capture_s")})
+            **{k: sum(g[k] for g in graphs.values()) for k in ("warmup_s", "capture_s")},
+            key_slots=0 if arena is None else len(arena["held"]),
+            key_arena_bytes=0 if arena is None else arena["data"].nbytes,
+            key_copies_planned=0 if arena is None else arena["copies"],
+            key_copies_lru=0 if arena is None else arena["lru_copies"])
         if self._streaming:
             stats.update(decode_rows=sum(decode_rows),
                          decode_max_bytes=max(decode_rows, default=0) * n * 4)
@@ -901,7 +1088,8 @@ class HEVMExecutor:
         as the CPU runs it eagerly. With streaming plaintexts it first
         gathers each group's records from the pool and decodes them, one
         decode per group (the reference's in-graph decode), then interprets
-        the window over those planes."""
+        the window over those planes; under a key budget it reads its keys
+        from its arena slots."""
         getplain = None
         if self._streaming:
             planes = {}
@@ -911,7 +1099,14 @@ class HEVMExecutor:
             def getplain(r, nl):
                 return planes[r] if nl is None else planes[r][:nl]
 
-        return self._exec_stream(info["ops"], ciphers, meta, info["outs"], getplain)
+        getgk = None
+        if self._arena is not None:
+            slots, data = self._arena["slots"].get(wi, {}), self._arena["data"]
+
+            def getgk(st):
+                return data[slots[st]]
+
+        return self._exec_stream(info["ops"], ciphers, meta, info["outs"], getplain, getgk)
 
     def _seg_graph(self, wi, info, in_meta, ins, stream, pool):
         """Capture window wi's _seg_body into one CUDA graph over the static
@@ -942,11 +1137,14 @@ class HEVMExecutor:
         (no graph: a tiny window's _exec_stream, and on the CPU every other
         window's _seg_body), or: copy each
         input that is not already the graph's own static input in, replay,
-        and bind the static outputs. Returns copies of the outputs, since the
-        next replay overwrites a graph's outputs. batch=B: every register
-        holds B ciphertexts, and the batch graphs replay."""
+        and bind the static outputs. Under a key budget a window of at least
+        SEGMENT_MIN_OPS ops first gets its keys staged into its arena slots.
+        Returns copies of the outputs, since the next replay overwrites a
+        graph's outputs. batch=B: every register holds B ciphertexts, and
+        the batch graphs replay."""
         plan = self._segment_plan()
         graphs = self._graphs([(nl, sc) for _, nl, sc in arg_cts], batch)
+        arena = self._key_arena()
         ciphers, meta = {}, {}
         for i, (data, nl, scale) in enumerate(arg_cts):
             ciphers[i] = data
@@ -955,13 +1153,15 @@ class HEVMExecutor:
         for wi, info in enumerate(plan):
             t0 = time.perf_counter()
             rec = graphs.get(wi)
+            if arena is not None and self._graph_window(info):
+                self._stage_keys(wi)
             if info["kind"] == "boot":
                 op = info["ops"][0]
                 nl, sc = meta[op.lhs]
                 ciphers[op.dst], meta[op.dst] = self._bootstrap(
                     ciphers[op.lhs], nl, sc, op.rhs, batch)
                 kind = "boot"
-            elif rec is None and len(info["ops"]) >= self.SEGMENT_MIN_OPS:
+            elif rec is None and self._graph_window(info):
                 self._seg_body(wi, info, ciphers, meta)     # the CPU
                 kind = "eager"
             elif rec is None:

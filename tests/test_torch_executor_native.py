@@ -20,6 +20,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -153,6 +154,32 @@ def test_key_count_includes_the_bootstrap(runs):
     assert set(port.keys.galois.keys()) == want and pex.n_keys == len(want)
     assert pex.key_bytes == (len(want) + 1) * port.galois_key_bytes()
     assert port.keys.conj is not None
+
+
+def test_key_count_differs_from_the_reference(runs, monkeypatch):
+    """ROADMAP C.4: the JAX package's key budget counts the program's
+    rotation offsets only (dacapo_tpu/vm/executor.py:88-90), the port's
+    `key_bytes` the native bootstrap's rotation keys and the conjugation key
+    as well, all of which sit on the device. Side by side here; under a
+    limit between the two counts the port budgets its keys and the JAX
+    package does not. Neither rule changes."""
+    pex, port = runs["pex"], runs["port"]
+    kb = port.galois_key_bytes()
+    jax_bytes = len({o for o in runs["prog"].rotation_offsets() if o != 0}) * kb
+    boot = set(pex.bootstrapper.rotation_steps())
+    assert pex.key_bytes == (pex.n_keys + 1) * kb > jax_bytes
+    assert pex.n_keys >= len(boot) > jax_bytes // kb
+    limit = int((pex.key_bytes + jax_bytes) / 2 / HEVMExecutor.KEY_BUDGET_FRAC)
+    monkeypatch.setenv("DACAPO_TPU_HBM_BYTES", str(limit))
+    budgets = {}
+    for name, cls in (("jax", RefExecutor), ("port", HEVMExecutor)):
+        ex = object.__new__(cls)
+        ex.s = SimpleNamespace(ctx=port.ctx, device=torch.device("cpu"),
+                               galois_key_bytes=lambda: kb,
+                               set_key_budget=lambda b, name=name: budgets.update({name: b}))
+        ex.prog, ex.key_bytes, ex._pt_budget = runs["prog"], pex.key_bytes, None
+        ex._set_memory_budgets()
+    assert budgets == {"port": int(HEVMExecutor.KEY_BUDGET_FRAC * limit)}
 
 
 def test_warm_bootstraps_cover_the_run(runs, monkeypatch):

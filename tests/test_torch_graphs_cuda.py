@@ -2,8 +2,9 @@
 program (artifacts/mlp_pars25_test_n11, the JAX compiler's output, checked by
 tests/test_torch_segments.py) loaded by HEVM, whose load captures the graphs.
 Graph replay is bit-equal to per-op dispatch, replays repeat, outputs
-survive later requests, a galois-key budget refuses graphs (set before the
-capture or after it), a replaced key is captured again, and the NTT kernels
+survive later requests, graphs under a galois-key budget (set before the
+capture or after it) read their keys from the key arena, bit-equal to
+per-op, a replaced resident key is captured again, and the NTT kernels
 that replays run are counted on the device: the wrapper counts no capture
 and no replay. Imports no JAX:
     python -m pytest tests/test_torch_graphs_cuda.py -m cuda
@@ -113,30 +114,45 @@ def test_ntt_launches_in_graphs_counted_on_device(vm):
 
 @pytest.mark.cuda
 def test_key_budget_refuses_graphs(keydir, vm):
+    """A key budget set before the capture no longer refuses graphs: the
+    graph reads its keys from the arena (here wider than the budget: the
+    program's one window reads every key), bit-equal to per-op."""
     per_op = _load(keydir, jit=False)
     per_op.scheme.set_key_budget(1 << 20)
+    ex = per_op.executor
     args = _args(per_op, 0)
-    with pytest.raises(RuntimeError, match="jit=False"):
-        per_op.executor.run_encrypted(args, jit="segment")
-    with pytest.raises(RuntimeError, match="jit=False"):
-        per_op.executor.precompile_segments()
-    got, _ = per_op.executor.run_encrypted(args, jit=False)
-    assert got[0].shape[0] == 2
+    want, _ = ex.run_encrypted(args, jit=False)
+    staged = ex.key_staging["host"]
+    assert ex.precompile_segments() == len(ex._captured[-1]) >= 1
+    assert ex.capture_stats["key_slots"] == ex.n_keys
+    got, _ = ex.run_encrypted(args, jit="segment")
+    torch.cuda.synchronize()
+    assert ex.key_staging["host"] - staged == ex.n_keys     # filled once, at the arena
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
 def test_key_budget_after_load_refuses_replay(keydir):
+    """A key budget set after the load: the next request captures once more,
+    over the arena, and replays from then on; bit-equal to per-op."""
     seg = _load(keydir)
+    ex = seg.executor
     args = _args(seg, 0)
-    want, _ = seg.executor.run_encrypted(args, jit=False)
+    want, _ = ex.run_encrypted(args, jit=False)
+    first = ex._captured
     seg.scheme.set_key_budget(1 << 20)
-    replays = seg.executor.replays
-    with pytest.raises(RuntimeError, match="jit=False"):
-        seg.executor.run_encrypted(args)
-    assert seg.executor.replays == replays and seg.executor._captured is None
-    got, _ = seg.executor.run_encrypted(args, jit=False)
+    replays = ex.replays
+    got, _ = ex.run_encrypted(args)
+    assert ex._captured is not first and ex.replays == replays + len(ex._captured[-1])
+    assert ex.capture_stats["key_slots"] > 0
+    again, _ = ex.run_encrypted(args)
+    assert ex._captured[-1] is not first[-1]
+    captured = ex._captured
+    ex.run_encrypted(args)
+    assert ex._captured is captured
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(again, want))
 
 
 @pytest.mark.cuda

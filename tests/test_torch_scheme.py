@@ -52,6 +52,24 @@ def test_encrypt_bit_equal_decrypt_equal(pair):
     assert np.sqrt(np.mean((port.decrypt(cp) - v) ** 2)) < 1e-4
 
 
+def test_conjugate_bit_equal():
+    """Scheme.conjugate: the conjugation key made at first use, in the JAX
+    package's draw order, and the conjugated ciphertext bit-equal."""
+    ref, port = RefScheme(PROFILE), Scheme(PROFILE, device="cpu")
+    ref.generate_keys()
+    port.generate_keys()
+    rng = np.random.default_rng(2)
+    v = rng.uniform(-1, 1, port.ctx.config.n_slots)
+    cr, cp = ref.encrypt(v, nl=6), port.encrypt(v, nl=6)
+    assert port.keys.conj is None
+    gr, gp = ref.conjugate(cr), port.conjugate(cp)
+    np.testing.assert_array_equal(U(port.keys.conj), np.asarray(ref.keys.conj))
+    np.testing.assert_array_equal(U(gp.data), np.asarray(gr.data))
+    assert gp.scale == gr.scale and not torch.equal(gp.data, cp.data)
+    np.testing.assert_array_equal(port.decrypt(gp), ref.decrypt(gr))
+    assert np.sqrt(np.mean((port.decrypt(gp) - v) ** 2)) < 1e-3    # a keyswitch at 2^25
+
+
 def test_keyset_cross_load(pair, tmp_path):
     ref, port = pair
     ref_keys.save_keyset(ref.keys, str(tmp_path / "jax"))

@@ -183,8 +183,9 @@ def test_no_graphs_on_the_cpu(pair):
 def test_graphs_follow_the_key_store(pair, monkeypatch):
     """The graph cache as the card uses it, with the capture stubbed: kept
     while the keys stay, captured again after a device key tensor was
-    replaced or the key set swapped, refused (and dropped) under a key
-    budget, even one set after the capture."""
+    replaced or the key set swapped; under a key budget, even one set after
+    the capture, captured once more over the key arena, then kept through
+    an LRU eviction, and captured again when the budget changes."""
     port = pair["port"]
     captures = []
     monkeypatch.setattr(port.s, "device", torch.device("cuda"))
@@ -204,10 +205,20 @@ def test_graphs_follow_the_key_store(pair, monkeypatch):
     monkeypatch.setattr(port.s, "keys", dataclasses.replace(port.s.keys))
     port._graphs(meta)
     assert len(captures) == 4
-    monkeypatch.setattr(galois, "budget", 1 << 20)
-    with pytest.raises(RuntimeError, match="jit=False"):
-        port._graphs(meta)
-    assert port._captured is None and len(captures) == 4
+    kb = port.s.galois_key_bytes()
+    monkeypatch.setattr(galois, "budget", len(galois) * kb // 2)
+    under = port._graphs(meta)
+    assert len(captures) == 5 and port._arena is not None
+    gen = galois.generation
+    galois[st]                                # an upload, and an LRU eviction
+    galois._fit()
+    assert galois.generation > gen
+    assert port._graphs(meta) is under and len(captures) == 5
+    monkeypatch.setattr(galois, "budget", galois.budget + kb)
+    port._graphs(meta)
+    assert len(captures) == 6
+    port._graphs(meta)
+    assert len(captures) == 6
 
 
 def test_galois_generation_counts_device_drops():

@@ -2,8 +2,8 @@
 MLP (artifacts/mlp_pars25_test_n11) loaded by HEVM, then forced to stream
 by a plaintext budget below its plaintext bytes and preprocessed again (its
 galois keys outweigh its plaintexts 5 to 1, so no DACAPO_TPU_HBM_BYTES
-streams its plaintexts without also budgeting the keys, which refuses
-graphs). The graphs decode their plaintexts from the compact pool in-graph;
+streams its plaintexts without also budgeting the keys, which
+tests/test_torch_keystream_cuda.py covers). The graphs decode their plaintexts from the compact pool in-graph;
 their outputs equal the per-op path (the LRU), the resident graphs and the
 CPU run bit for bit, at B=1 and in the B=4 batch graphs; a preprocess run
 again makes the next request capture again. Imports no JAX:
