@@ -40,7 +40,7 @@
    generated; the load captures the device oracle's graphs, one per cache
    key, and the segment graphs), times keygen / galois keygen / pre-encode /
    oracle capture / capture and reports the plaintext and key bytes and the
-   graphs' count; serves three timed segmented requests, checks the RMS of
+   graphs' count; serves two timed segmented requests, checks the RMS of
    the 10 logits of each against the torch model (bar 9.5152e-4, the
    reference's), that 19 bootstraps ran in each, each one a replay of an
    oracle graph captured at load, and that the plain NTT never ran; reruns
@@ -54,7 +54,7 @@
    modes must have run, counted on the device as in 6; then the batch part
    on the same HEVM (keys and plaintexts shared): precompile_batch(4)
    captures the batch graphs (the oracle's, one per cache key and B, and
-   the segments'), three timed batch requests of the test images of seeds
+   the segments'), two timed batch requests of the test images of seeds
    100-103 (setInputBatch, runBatch), every row's RMS held to the same bar,
    19 batched oracle graph replays and no plain NTT call in each, and one
    profiled batch request; seconds a batch and a ciphertext beside the B=1
@@ -65,7 +65,7 @@
    keys (key budget 5,905,580,032 B: the load pins their host copies and
    makes the key arena); its load captures the segment graphs, each
    decoding its plaintexts in-graph and reading its keys from its arena
-   slots, and one oracle graph; three timed requests held to the same bar,
+   slots, and one oracle graph; two timed requests held to the same bar,
    19 oracle replays, no plain NTT and no capture each, all 96 graphs
    replayed, the planned key copies and no LRU upload, device key bytes
    (arena and LRU) within the budget; the resident VM's second request
@@ -86,18 +86,18 @@
    program the port compiled in 4 (depth 20, 2 bootstraps to level 14, 2^14
    slots) on a fresh keyset, the load running each bootstrap once (its galois keys,
    conjugation key and diagonals are made there) and capturing the graphs;
-   three timed segmented requests (RMS against the plaintext model <= 1e-4,
+   two timed segmented requests (RMS against the plaintext model <= 1e-4,
    2 native bootstraps each, the NTT kernel launched in both modes, the
    plain NTT never), the second rerun per-op with the input RNG restored
    (bit-equal), one request timed by window and one profiled; (b) on the
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
-   and nl=2 to level 14 (RMS <= 1e-5), timed three times, one bootstrap
+   and nl=2 to level 14 (RMS <= 1e-5), timed twice, one bootstrap
    profiled (idle share, kernels, NTT calls of each mode on the device);
    (d) the same HEVM loads the program again under the JAX package's 16
    GiB plan (DACAPO_TPU_HBM_BYTES = 2^34): its galois keys pass the key
    budget, so it loads on the segment path with a key arena (the native
    bootstraps read theirs through the LRU from pinned host memory) and
-   serves the three request ciphertexts of (c) again: RMS, 2 bootstraps
+   serves the two request ciphertexts of (c) again: RMS, 2 bootstraps
    (timed), every graph replayed, the planned key copies, device key bytes
    within the budget, outputs bit-equal to (c)'s; one request profiled;
 10. the basic phase: the five non-MLP rows of the basic list
@@ -120,16 +120,34 @@
     its plaintexts and budgets its galois keys: its batch graphs decode
     in-graph and read their keys from the arena, and its rows must equal
     the resident batch's byte for byte, one request profiled;
+    then the mesh part (parallel/mesh.py): an in-process NCCL group of
+    world size 1, and the same batch on the resident full HEVM through
+    precompile_batch(8, mesh=make_mesh(1)) and runBatch's path over the
+    mesh (its keys split at mp = 1, its batch graphs recording the mp
+    all-gathers): three timed batches beside the mesh=None median, the
+    graphs and the collectives of each batch (in the graphs, eager, dp),
+    rows byte-equal to the mesh=None batch, runBatch(mesh=...)'s rows held
+    to the RMS bar, one batch profiled (NTT calls on the device);
 11. the NTT at every batch size the two batch paths launched (recorded by
     wrapping the Evaluator's kernel call over each batch capture and first
     request) and at every batch size the two streaming parts' plaintext
     decodes launched (recorded by wrapping the Evaluator's decode),
     bit-equal to the plain NTT in both modes, the largest timed against its
-    bound;
+    bound; then the mesh's shard arithmetic at tpu_n15's top level
+    (parallel.mesh.shard_check, one process, no collective): each rank's
+    rows of a mul_ct key switch and of a rot-mac group's accumulators at
+    mp = 2 and 4, assembled, bit-equal to the unsharded ones, with the NTT
+    at every batch size those row subsets launched bit-equal to the plain
+    NTT, and the device key bytes one rank holds at each mp;
 12. the profile phase: runtime/profiler.py's tpu_n14 latency table (CUDA
     events) into OUT_DIR, read back by ir/config.load_profile, every
     row positive and nondecreasing;
-13. prints the kernel table as one JSON line (launches: the profiled
+13. the native artifact core (vm/native.py, csrc/hevm_core.cpp), built
+    with g++ before the first phase: every .hevm and .cst the phases read
+    and write goes through it (its calls are counted and must be nonzero),
+    and the committed ResNet .hevm loads equal through it and the
+    pure-Python reader, both timed;
+14. prints the kernel table as one JSON line (launches: the profiled
     ResNet request's, counted on the device; every path's under
     launches_by_path, and per ciphertext; the batch shapes' times), then
     the card's name and power limit, then {"ok": true, "device": {...}} as
@@ -171,6 +189,9 @@ RMS_BAR_NATIVE_BOOT = 1e-5     # the standalone tpu_n15b bootstrap (JAX on the T
 RMS_BAR_NATIVE_DEEP = 1e-4     # the deep DaCapo program on tpu_n15b
 RMS_BAR_BASIC = 2e-5           # the basic rows (JAX on the TPU: 1.05e-7 to 6.49e-6)
 N_TIMED = 25
+# timed requests of the ResNet (B=1, B=4 and streaming) and native paths:
+# two since the mesh phase joined, to keep the run inside its time limit
+TIMED_REQUESTS = 2
 RESNET_BATCH = 4               # ciphertexts a ResNet batch request carries
 BASIC_BATCH = 8                # and a Multivariate one
 BASIC_BATCH_ROW = "Multivariate"
@@ -713,7 +734,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     width and depth: the port traces it (its .cst must equal the JAX
     package's byte for byte), HEVM loads the committed .hevm on the keyset
     the MLP phase wrote (only the missing rotation keys are generated) and
-    captures the graphs, three timed segmented requests are held to the
+    captures the graphs, two timed segmented requests are held to the
     reference's RMS bar, the second is rerun per-op with the same randomness
     and must give the same ciphertexts, and two more requests are timed by
     window and profiled."""
@@ -787,12 +808,12 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         f"{cap['warmup_s']:.3f} s, capture and instantiate {cap['capture_s']:.3f} s; peak "
         f"during load {out['peak_load_bytes']} bytes")
 
-    # three timed segmented requests; the state of both generators before the
-    # second one (the key generator's, which encrypts the input, and the
-    # oracle's on the card) and its outputs are kept for the per-op rerun
+    # TIMED_REQUESTS timed segmented requests; the state of both generators
+    # before the second one (the key generator's, which encrypts the input,
+    # and the oracle's on the card) and its outputs are kept for the per-op rerun
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
-    for i in range(3):
+    for i in range(TIMED_REQUESTS):
         reset_counts(nk, ntt_mod)
         bs.calls = 0
         replays0 = bs.replays
@@ -847,7 +868,8 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     out["per_op_request_s"] = time.perf_counter() - t0
     out["segment_equals_per_op"] = all(
         torch.equal(a, b) for a, b in zip(ex._last_outputs[0], kept_outs))
-    log(f"[resnet] request median of 3 (segment) {out['request_median_s']:.3f} s; the "
+    log(f"[resnet] request median of {TIMED_REQUESTS} (segment) "
+        f"{out['request_median_s']:.3f} s; the "
         f"second request per-op {out['per_op_request_s']:.3f} s, output ciphertexts "
         f"bit-equal to the segment run: {out['segment_equals_per_op']}")
     if not out["segment_equals_per_op"]:
@@ -913,7 +935,7 @@ def resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod, single_med
     """The batch part of the ResNet phase, on the same loaded HEVM (keys and
     plaintexts shared): precompile_batch(RESNET_BATCH) captures the batch
     graphs (the oracle's, one per cache key and B, and the segments'), then
-    three timed batch requests (setInputBatch of the test images of seeds
+    two timed batch requests (setInputBatch of the test images of seeds
     100.., runBatch, which decrypts) and a profiled one. Every row's RMS
     against the torch model is held to the reference's bar, a request must
     make one batched oracle graph replay per bootstrap and no plain NTT
@@ -949,7 +971,7 @@ def resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod, single_med
         if not graphs or not out["oracle_graphs"]:
             raise AssertionError("the batch capture made no graph")
         requests = []
-        for i in range(3):
+        for i in range(TIMED_REQUESTS):
             reset_counts(nk, ntt_mod)
             calls0, replays0, oracle_n = bs.calls, bs.replays, len(bs._graphs)
             t0 = time.perf_counter()
@@ -1037,7 +1059,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     plaintexts must stream (the compact pool) and so must its galois keys:
     the load pins their host copies and makes the key arena, and captures
     the segment graphs, each decoding its plaintexts in-graph and reading
-    its keys from its arena slots, and one oracle graph. Three timed
+    its keys from its arena slots, and one oracle graph. Two timed
     requests are held to the RMS bar, 19 oracle replays, no plain NTT and no
     capture each, every graph window replayed, the planned key copies and
     no LRU upload (no key read outside the arena), the device key bytes
@@ -1111,7 +1133,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
 
     requests = []
     graphs = ex._captured
-    for i in range(3):
+    for i in range(TIMED_REQUESTS):
         reset_counts(nk, ntt_mod)
         bs.calls = 0
         replays0, seg0 = bs.replays, ex.replays
@@ -1362,7 +1384,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
     kept = dict(vm=vm, x=x, want=want, graphs=ex.capture_stats["graphs"], requests=[])
-    for i in range(3):
+    for i in range(TIMED_REQUESTS):
         reset_counts(nk, ntt_mod)
         calls0, n_keys0 = bs.calls, len(keys.galois)
         torch.cuda.reset_peak_memory_stats()
@@ -1410,7 +1432,8 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     out["per_op_request_s"] = time.perf_counter() - t0
     out["segment_equals_per_op"] = all(
         torch.equal(a, b) for a, b in zip(ex._last_outputs[0], kept_outs))
-    log(f"[native] request median of 3 (segment) {out['request_median_s']:.3f} s; the "
+    log(f"[native] request median of {TIMED_REQUESTS} (segment) "
+        f"{out['request_median_s']:.3f} s; the "
         f"second per-op {out['per_op_request_s']:.3f} s, output ciphertexts bit-equal: "
         f"{out['segment_equals_per_op']}")
     if not out["segment_equals_per_op"]:
@@ -1458,7 +1481,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     ct = s.encrypt(vals, scale=2.0 ** s.ctx.config.scale_bits, nl=2)
     sb = out["standalone"] = {}
     times = []
-    for i in range(4):
+    for i in range(1 + TIMED_REQUESTS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         data, (nl2, scale) = bs.bootstrap(ct.data, 2, ct.scale, 14)
@@ -1500,7 +1523,7 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     a budget (their device copies go to the host), the load pins their host
     copies and makes the key arena of the graph windows; the native
     bootstraps now read their keys through the key store's LRU from pinned
-    host memory. The resident VM's three request ciphertexts are served
+    host memory. The resident VM's two request ciphertexts are served
     again (run_encrypted): RMS, 2 native bootstraps, every graph window
     replayed, the planned key copies, device key bytes within the budget,
     outputs bit-equal to the resident executor's; the bootstraps are timed;
@@ -1844,6 +1867,176 @@ def basic_batch(np, torch, HEVM, full, test, nt, nk, ntt_mod, keydir, cst, hevm)
                              f"{prof['plain_ntt_calls']}")
     out["streamed"] = basic_batch_streamed(torch, HEVM, full.profile, keydir, cst, hevm, args,
                                            outs, meta, nk, ntt_mod, full.executor.plain_bytes)
+    # last: the mesh splits this VM's keys
+    t0 = time.perf_counter()
+    out["mesh"] = basic_batch_mesh(np, torch, full, cases, args, outs, meta,
+                                   out["batch_median_s"], nk, ntt_mod)
+    out["mesh"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def basic_batch_mesh(np, torch, full, cases, args, outs, meta, none_median_s, nk, ntt_mod):
+    """The basic batch over a mesh of world size 1 (parallel/mesh.py): an
+    in-process NCCL group, make_mesh(1), and the row's resident full HEVM
+    captures the batch graphs over it (precompile_batch(mesh=...): its keys
+    split at mp = 1, every key switch's all-gather recorded into its
+    window's graph); three timed batches beside the mesh=None median of this
+    run, with the collectives each issued (mp all-gathers replayed in the
+    graphs and eager, dp all-gathers), rows byte-equal to the mesh=None
+    batch; runBatch(mesh=...)'s decrypted rows held to the RMS bar; one
+    batch profiled (NTT calls on the device). The group is destroyed
+    before it returns."""
+    import torch.distributed as dist
+    from dacapo_tpu_torch.parallel import mesh as mesh_mod
+    ex, nb = full.executor, BASIC_BATCH
+    key_bytes_whole = ex.key_bytes
+    work = tempfile.mkdtemp(prefix="nccl_")
+    t0 = time.perf_counter()
+    mesh_mod.init_world(0, 1, "file://" + os.path.join(work, "init"), "cuda:0")
+    try:
+        mesh = mesh_mod.make_mesh(1)
+        init_s = time.perf_counter() - t0
+        shapes = NttShapes()
+        shapes.start()
+        try:
+            t0 = time.perf_counter()
+            graphs = full.precompile_batch(nb, mesh=mesh)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            capture = dict(ex.batch_capture_stats)
+            shard = full.scheme.ev.shard
+            times, collectives = [], []
+            for _ in range(3):
+                reset_counts(nk, ntt_mod)
+                counts0 = (ex.mesh_collectives, shard.gathers, mesh.dp_gathers)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got, got_meta = ex.run_encrypted_batch(args, mesh=mesh)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                collectives.append(dict(zip(
+                    ("mp_in_graphs", "mp_eager", "dp"),
+                    (b - a for a, b in zip(counts0, (ex.mesh_collectives, shard.gathers,
+                                                     mesh.dp_gathers))))))
+                shapes.stop()
+                if any(ntt_mod.CALLS.values()):
+                    raise AssertionError(f"the plain NTT ran on the mesh batch: {ntt_mod.CALLS}")
+        finally:
+            shapes.stop()
+        equal = got_meta == meta and all(torch.equal(a, b) for a, b in zip(got, outs))
+        dec = full.runBatch(mesh=mesh)
+        rms = [float(np.sqrt(np.mean((np.asarray(post(dec[b]), np.float64).ravel()
+                                      - np.asarray(golden, np.float64).ravel()) ** 2)))
+               for b, (_, golden, post) in enumerate(cases)]
+        prof = profile_request(torch, lambda: ex.run_encrypted_batch(args, mesh=mesh),
+                               f"basic {BASIC_BATCH_ROW} mesh batch", ex, nk, ntt_mod, cpu=False)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(world=1, dp=mesh.dp, mp=mesh.mp, init_s=init_s, graphs=graphs,
+               capture_s=capture_s, capture=capture, batch_s=times,
+               batch_median_s=statistics.median(times), mesh_none_median_s=none_median_s,
+               collectives=collectives, collectives_in_graphs=capture["collectives"],
+               rows_equal_mesh_none=equal, rms=rms, key_shard=full.scheme.keys.shard,
+               key_bytes_whole=key_bytes_whole, key_bytes_rank=ex.key_bytes,
+               ntt_batch_sizes=sorted(shapes.sizes), profiled_request=prof)
+    out["over_mesh_none"] = out["batch_median_s"] / none_median_s
+    log(f"[mesh] {BASIC_BATCH_ROW} B={nb} over make_mesh(1) (NCCL, dp {mesh.dp} x mp "
+        f"{mesh.mp}, group {init_s:.3f} s): capture {capture_s:.3f} s ({graphs} graphs "
+        f"recording {capture['collectives']} mp all-gathers); batches "
+        + ", ".join(f"{t:.4f}" for t in times)
+        + f" s (median {out['batch_median_s']:.4f} s, {out['over_mesh_none']:.3f}x the "
+        f"mesh=None median {none_median_s:.4f} s); collectives a batch {collectives}; rows "
+        f"byte-equal to mesh=None: {equal}; rms per row " + ", ".join(f"{v:.3e}" for v in rms)
+        + f"; key bytes a rank {ex.key_bytes} (whole {key_bytes_whole}); idle share "
+        f"{prof['idle_share']}, NTT calls on the device {prof['ntt_launches']}")
+    if not equal:
+        raise AssertionError("the mesh batch differs from the mesh=None batch")
+    if not max(rms) <= RMS_BAR_BASIC or dec.shape[0] != nb:
+        raise AssertionError(f"mesh batch rms {rms} > {RMS_BAR_BASIC}")
+    if not graphs or capture["collectives"] <= 0 or any(
+            c["mp_in_graphs"] != capture["collectives"] or c["dp"] != len(outs)
+            for c in collectives):
+        raise AssertionError(f"the mesh batch: {graphs} graphs, {capture['collectives']} "
+                             f"all-gathers captured, collectives a batch {collectives}")
+    if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+        raise AssertionError(f"the profiled mesh batch: NTT {prof['ntt_launches']}, plain "
+                             f"{prof['plain_ntt_calls']}")
+    return out
+
+
+def mesh_shards(torch, Scheme, params, ntt_mod, nk):
+    """The mesh's row-subset arithmetic on the card, in one process and
+    without a collective (parallel.mesh.shard_check): at tpu_n15's top
+    level, each rank's rows of a mul_ct key switch and of a two-tap rot-mac
+    group at mp = 2 and 4, assembled, must equal the unsharded accumulators
+    bit for bit; the NTT at every batch size the row subsets launched must
+    equal the plain NTT; and the device key bytes one rank holds at each mp
+    (Multivariate's 12 tpu_n14 keys, ResNet-20's 202 tpu_n15 keys). A check
+    of the kernels and tables on row subsets, not of the collectives."""
+    from dacapo_tpu_torch.parallel.mesh import shard_check
+    s = Scheme("tpu_n15", device="cuda")
+    s.generate_keys(rot_steps=(1, 2))
+    out = {}
+    shapes = NttShapes()
+    shapes.start()
+    try:
+        for mp in (2, 4):
+            t0 = time.perf_counter()
+            r = out[f"mp{mp}"] = shard_check(s, mp)
+            torch.cuda.synchronize()
+            r["seconds"] = time.perf_counter() - t0
+    finally:
+        shapes.stop()
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = {}
+    for profile, n_keys in (("tpu_n14", 12), ("tpu_n15", 202)):
+        cfg = params.PROFILES[profile]
+        keys[profile] = {mp: max(len(range(r, cfg.num_all, mp)) for r in range(mp))
+                         * cfg.dnum * 2 * cfg.n * 4 * n_keys for mp in (1, 2, 4)}
+    out["key_bytes_a_rank"] = keys
+    out["ntt"] = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n15", sorted(shapes.sizes),
+                                     "mesh shards mp 2, 4")
+    log("[mesh] shard arithmetic at tpu_n15 nl=28: " + "; ".join(
+        f"mp {mp}: {out[f'mp{mp}']['mismatches']} mismatched elements, key rows "
+        f"{out[f'mp{mp}']['rows']}, {out[f'mp{mp}']['seconds']:.3f} s" for mp in (2, 4))
+        + f"; key bytes a rank by mp: {keys}")
+    bad = [mp for mp in (2, 4) if out[f"mp{mp}"]["mismatches"]]
+    if bad:
+        raise AssertionError(f"the sharded accumulators differ from the unsharded at mp {bad}")
+    return out
+
+
+def native_core(HEVMProgram, native):
+    """The native artifact core after the phases: built from the checkout's
+    source (or found built from it), every .hevm and .cst they read and
+    wrote went through it, and the committed
+    ResNet .hevm loads equal through it and the pure-Python reader (each
+    timed, median of 3)."""
+    path = os.path.join(RESNET_ART, "ResNet.hevm")
+    times = {}
+    progs = {}
+    for name, load in (("native", HEVMProgram.load), ("python", HEVMProgram._load_py)):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            progs[name] = load(path)
+            ts.append(time.perf_counter() - t0)
+        times[name] = statistics.median(ts)
+    a, b = progs["native"], progs["python"]
+    equal = [(o.opcode, o.dst, o.lhs, o.rhs) for o in a.ops] == [
+        (o.opcode, o.dst, o.lhs, o.rhs) for o in b.ops] and a.res_dst == b.res_dst
+    out = dict(build=dict(native.BUILD_INFO), calls=dict(native.CALLS),
+               resnet_hevm_load_s=times, resnet_ops=len(a.ops), equal=equal)
+    log(f"[native core] built {native.BUILD_INFO['built']} in "
+        f"{native.BUILD_INFO['seconds']:.3f} s; calls {out['calls']}; ResNet.hevm "
+        f"({len(a.ops)} ops) load {times['native']:.4f} s native, {times['python']:.4f} s "
+        f"Python, equal {equal}")
+    if not equal or min(
+            out["calls"][k] for k in ("hevm_load", "hevm_save", "cst_load", "cst_save")) <= 0:
+        raise AssertionError(f"the native core: {out}")
     return out
 
 
@@ -1978,6 +2171,12 @@ def main():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] {line.strip()}")
 
+    from dacapo_tpu_torch.vm import native as hevm_core
+    from dacapo_tpu_torch.vm.hevm import HEVMProgram
+    t1 = time.perf_counter()
+    hevm_core.build()
+    log(f"[build] hevm_core.cpp: {time.perf_counter() - t1:.2f} s -> "
+        f"{hevm_core.BUILD_INFO['library']}")
     seconds = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     results, max_err = kernel_checks(torch, params, ntt_mod, nk)
@@ -2038,6 +2237,8 @@ def main():
     basic_batch_out = report["basic"][BASIC_BATCH_ROW]["batch"]
     by_path[f"basic_{BASIC_BATCH_ROW}_streamed_batch{BASIC_BATCH}_request"] = \
         basic_batch_out["streamed"]["profiled_request"]["ntt_launches"]
+    by_path[f"basic_{BASIC_BATCH_ROW}_mesh_batch{BASIC_BATCH}_request"] = \
+        basic_batch_out["mesh"]["profiled_request"]["ntt_launches"]
     # and every batch size the plaintext decodes launched
     report["ntt_batch"] = timed("batch_kernel_checks", lambda: {
         f"resnet_tpu_n15_B{RESNET_BATCH}": batch_kernel_checks(
@@ -2051,28 +2252,32 @@ def main():
         f"{BASIC_BATCH_ROW}_decode_tpu_n14": batch_kernel_checks(
             torch, params, ntt_mod, nk, "tpu_n14",
             basic_batch_out["streamed"]["decode_ntt_sizes"], f"{BASIC_BATCH_ROW} decode")})
+    report["mesh_shards"] = timed("mesh_shards", mesh_shards, torch, Scheme, params, ntt_mod, nk)
     report["profile"], by_path["profile_tpu_n14"] = timed(
         "profile", profile_ops, torch, nk, ntt_mod)
+    report["native_core"] = native_core(HEVMProgram, hevm_core)
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     per_ct = {f"resnet_tpu_n15_batch{RESNET_BATCH}_request": RESNET_BATCH,
               f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request": BASIC_BATCH,
-              f"basic_{BASIC_BATCH_ROW}_streamed_batch{BASIC_BATCH}_request": BASIC_BATCH}
+              f"basic_{BASIC_BATCH_ROW}_streamed_batch{BASIC_BATCH}_request": BASIC_BATCH,
+              f"basic_{BASIC_BATCH_ROW}_mesh_batch{BASIC_BATCH}_request": BASIC_BATCH}
     kernels = []
     for mode, name, line in (("fwd", "ntt_fwd_cuda", 94), ("inv", "ntt_inv_cuda", 110)):
         r = results[mode][("tpu_n15", 112)]
         n15b = {f"B={b}": results[mode][("tpu_n15b", b)] for b in (120, 240)}
         oracle = {f"B={b}": results[mode][("tpu_n15", b)] for b in (3, 28, 84)}
         n14 = {f"B={b}": results[mode][("tpu_n14", b)] for b in BASIC_TIMED_N14}
+        shape_checks = dict(report["ntt_batch"], mesh_shards_tpu_n15=report["mesh_shards"]["ntt"])
         batch_shapes = {path: dict(largest_B=r["largest"], checked_B=r["checked"],
                                    max_abs_err=r["max_abs_err"][mode], **r[mode])
-                        for path, r in report["ntt_batch"].items()}
+                        for path, r in shape_checks.items()}
         kernels.append(dict(
             name=name, route="cuda", source="dacapo_tpu_torch/csrc/ntt.cu",
             replaces=f"dacapo_tpu/crypto/pallas/ntt_kernel.py:{line}",
             launches=by_path["resnet_tpu_n15_request"][name],
             max_abs_err=max(max_err[mode], *(b["max_abs_err"][mode]
-                                             for b in report["ntt_batch"].values())),
+                                             for b in shape_checks.values())),
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape="B=112, N=2^15 (ModUp batch at tpu_n15)",

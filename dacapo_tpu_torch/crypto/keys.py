@@ -4,6 +4,14 @@ Port of dacapo_tpu/crypto/keys.py. Sampling happens host-side with numpy's
 default_rng in the reference's exact draw order, so a context with the same
 seed gives bit-identical keys; the NTTs run on the context's device. Keysets
 persist as the reference's `.npy` directory, readable by either package.
+
+On the mp axis of a mesh (parallel/mesh.py, crypto/ops.py) every rank draws
+the same keys from the same seed, one full key at a time, and keeps only
+its rows of each key-switch key (`Evaluator.shard_key`): the relinearization
+key, the conjugation key and the galois keys then hold [dnum, 2, rows, N],
+and the galois budget, the executor's key arena and the LRU count those
+bytes. A sharded keyset is not written to disk: the keyset directory holds
+full keys, as the JAX package writes them.
 """
 
 import os
@@ -189,6 +197,19 @@ class GaloisStore:
     def keys(self):
         return self._host.keys() | self._dev.keys()
 
+    def map_keys(self, fn):
+        """A new store holding fn(key) for every key, under the same budget
+        and pinning; each device copy here is dropped as its replacement is
+        made, so the two stores together hold one extra key at most."""
+        new = GaloisStore(self.device, self.budget)
+        if self._slabs is not None:
+            new.pin_host()
+        for st in sorted(self.keys()):
+            src = self._host.get(st)
+            new[st] = fn(self._dev[st] if src is None else src)
+            self._drop(st)
+        return new
+
     def peek_host(self, st):
         """Host uint32 copy without promoting the key to the device."""
         host = self._host.get(st)
@@ -205,6 +226,8 @@ class KeySet:
     rlk: object                      # int32 [dnum, 2, num_all, N]
     galois: GaloisStore = None       # steps -> int32 [dnum, 2, num_all, N]
     conj: object = None              # conjugation key, same shape as rlk
+    shard: tuple = None              # (mp, rank): the key-switch keys hold only
+    #                                  the rows g with g % mp == rank
 
 
 def _residues(coeffs: np.ndarray, primes) -> np.ndarray:
@@ -317,7 +340,7 @@ class KeyGenerator:
             msg = mul_mod(to_dev(fac[:, None], ctx.device), target_ntt, q)
             b_j = add_mod(add_mod(neg_mod(mul_mod(a_j, s_ntt, q), q), e_j, q), msg, q)
             digits.append(torch.stack([b_j, a_j]))
-        return torch.stack(digits)
+        return self.ev.shard_key(torch.stack(digits))
 
 
 def save_keyset(keyset: KeySet, dirpath: str, parts=("secret", "public", "eval"),
@@ -326,6 +349,9 @@ def save_keyset(keyset: KeySet, dirpath: str, parts=("secret", "public", "eval")
     files; galois/<steps>.npy). `parts` selects what is written, so a
     deployment can ship the client half (secret, public) and the server half
     (public, eval) apart. skip_existing: only write absent files."""
+    if keyset.shard is not None and "eval" in parts:
+        raise ValueError(f"the keyset holds the rows of rank {keyset.shard[1]} of an mp axis "
+                         f"of {keyset.shard[0]}: only full keys are written")
     os.makedirs(dirpath, exist_ok=True)
 
     def _put(name, arr):

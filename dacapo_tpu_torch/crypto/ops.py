@@ -26,6 +26,18 @@ fixed reorder is a gather at the NTT boundary (`_ntt`), so a slot rotation is
 a roll of each half. The NTT itself is the hand-written CUDA kernel for
 tensors on the card and the plain PyTorch NTT for tensors on the CPU.
 
+The mp axis of a mesh (parallel/mesh.py). With `Evaluator.shard` set (a
+RowShard), rank m of the mp group owns the QP rows whose global prime index
+g has g % mp == m: a cyclic split, so every rank keeps rows as levels drop
+the top Q rows. Its key-switch keys hold only those rows (`shard_key`,
+crypto/keys.py); ModUp extends each digit only into its owned target rows
+and takes their NTT; the key inner product (`_ks_inner`, `_rot_mac_tap`, the
+masks' rows too) runs on them; then ONE all-gather per key switch brings
+both accumulators of every rank together (`_gather_qp`), interleaved back
+into QP row order, and ModDown runs replicated. Everything else (pointwise
+ops, rescale, the automorphism, the Q-row NTTs) is replicated within the mp
+group. Without a shard every op is the unsharded one, launch for launch.
+
 The reference's jit wrappers and table "pack" have no counterpart: device
 tables are cached once per Evaluator. Where the reference adds terms one by
 one with add_mod, the port sums canonical residues in int64 and reduces
@@ -34,6 +46,7 @@ once, which gives the same residue.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .cuda.ntt_kernel import ntt_cuda
 from .modmath import add_mod, sub_mod, neg_mod, mul_mod, host_shoup
@@ -46,18 +59,52 @@ def _sum_mod(terms, q, dim=0):
     return (terms.sum(dim) % q).to(torch.int32)
 
 
+def _pad_rows(x, rows):
+    """x [..., R, N] zero-padded to [..., rows, N] (x itself when R == rows)."""
+    r = x.shape[-2]
+    if r == rows:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-2] + (rows - r, x.shape[-1]))], dim=-2)
+
+
 def _stack2(a, b):
     """The two polys of a ciphertext, each [..., nl, N] -> [..., 2, nl, N]."""
     return torch.stack([a, b], dim=-3)
 
 
+class RowShard:
+    """This rank's part of the QP rows on a mesh's mp axis: rank `rank` of
+    `mp` owns the global prime rows g with g % mp == rank. group: the
+    torch.distributed group of the mp axis (None: the shard computes its
+    own rows and gathers nothing, which the shard-arithmetic checks use).
+    `gathers` counts the all-gathers issued from Python (one recorded into a
+    CUDA graph counts once, at capture)."""
+
+    def __init__(self, mp, rank, group=None):
+        if not 0 <= rank < mp:
+            raise ValueError(f"rank {rank} is not on an mp axis of {mp}")
+        self.mp, self.rank, self.group = mp, rank, group
+        self.gathers = 0
+
+    def all_gather(self, x):
+        """[mp, *x.shape]: every rank's x, in rank order."""
+        out = x.new_empty((self.mp * x.shape[0],) + tuple(x.shape[1:]))
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, x.contiguous(), group=self.group)
+        self.gathers += 1
+        return out.view((self.mp,) + tuple(x.shape))
+
+
 class Evaluator:
-    """Op library bound to one CKKSContext (and its device)."""
+    """Op library bound to one CKKSContext (and its device); `shard` (a
+    RowShard, None by default) splits the key switch's QP rows over the mp
+    axis of a mesh (module docstring)."""
 
     def __init__(self, ctx):
         self.ctx = ctx
         self.n = ctx.n
         self.device = ctx.device
+        self.shard = None
         self._tabs = {}      # (kind, rows) -> device tensor
         self._consts = {}    # id(host array) -> (array, device tensor)
 
@@ -244,46 +291,149 @@ class Evaluator:
 
     def modup(self, c_ntt, nl):
         """ModUp decomposition of `c_ntt` (int32 [..., nl, N], NTT domain)
-        -> int32 [..., dnum_active, nl + alpha, N] digit planes over
-        Q^{(nl)}P in NTT domain (hybrid key switching with approximate base
-        conversion; see params.py). Rotations of one ciphertext share it
-        (hoisting)."""
+        -> int32 [..., dnum_active, R, N] digit planes over Q^{(nl)}P in
+        NTT domain (hybrid key switching with approximate base conversion;
+        see params.py), R = nl + alpha, or under a row shard this rank's R
+        rows of it, in QP order (`own_rows`). Rotations of one ciphertext
+        share it (hoisting)."""
         lc = self.ctx.level(nl)
         c_coeff = self._ntt(c_ntt, range(nl), inverse=True)
         # every group's coeff-domain extension, then ONE batched NTT
-        exts, targets = [], []
-        for g in lc.groups:
+        exts, targets, parts = [], [], []
+        for gi, g in enumerate(lc.groups):
             lo, hi = g.rows[0], g.rows[-1] + 1
             u = mul_mod(c_coeff[..., lo:hi, :], self._c(g.t_coef)[:, None],
                         self._q(g.rows))
-            tq = self._q(g.targets)                  # [T, 1]
-            m = self._c(g.m).to(torch.int64)         # [g, T]
+            tg, m, own, k_lo = self._modup_group(nl, gi, g)
+            tq = self._q(tg)                         # [T, 1]
             exts.append(_sum_mod(
                 u.to(torch.int64)[..., None, :] * m[:, :, None] % tq, tq, dim=-3))
-            targets.extend(g.targets)
+            targets.extend(tg)
+            parts.append((g, own, k_lo, len(tg)))
         ext_ntt = self._ntt(torch.cat(exts, dim=-2), targets)
         digits = []
         off = 0
-        for g in lc.groups:
-            lo, hi = g.rows[0], g.rows[-1] + 1
-            ext = ext_ntt[..., off: off + len(g.targets), :]
-            off += len(g.targets)
+        for g, own, k_lo, nt in parts:
+            ext = ext_ntt[..., off: off + nt, :]
+            off += nt
             # own planes stay in NTT domain, scaled by S
-            own = mul_mod(c_ntt[..., lo:hi, :], self._c(g.s_ntt)[:, None],
-                          self._q(g.rows))
+            local = slice(own.start - g.rows[0], None, own.step)
+            own_p = mul_mod(c_ntt[..., own, :], self._c(g.s_ntt)[local][:, None],
+                            self._q(g.rows[local]))
             # targets are Q rows [0, lo) and [hi, nl), then the specials:
             # so the digit in Q^{(nl)}P row order is ext[:lo] | own | ext[lo:]
-            digits.append(torch.cat([ext[..., :lo, :], own, ext[..., lo:, :]], dim=-2))
+            digits.append(torch.cat([ext[..., :k_lo, :], own_p, ext[..., k_lo:, :]], dim=-2))
         return torch.stack(digits, dim=-3)
 
+    def _modup_group(self, nl, gi, g):
+        """Group gi's ModUp extension at nl rows: (target rows, basis
+        conversion table [g, T] int64, slice of its own rows, the count of
+        target rows before them). Under a row shard, only this rank's
+        target rows and columns, and its own rows (a strided slice)."""
+        lo, hi = g.rows[0], g.rows[-1] + 1
+        sh = self.shard
+        if sh is None:
+            return g.targets, self._c(g.m).to(torch.int64), slice(lo, hi), lo
+        key = ("modup", nl, gi, sh.mp, sh.rank)
+        hit = self._tabs.get(key)
+        if hit is None:
+            cols = [i for i, t in enumerate(g.targets) if t % sh.mp == sh.rank]
+            m = np.ascontiguousarray(g.m[:, cols])
+            hit = self._tabs[key] = (
+                [g.targets[i] for i in cols],
+                torch.from_numpy(m.astype(np.int64)).to(self.device),
+                slice(lo + (sh.rank - lo) % sh.mp, hi, sh.mp),
+                len(range(sh.rank, lo, sh.mp)))
+        return hit
+
+    # ------------------------------------------------------ the row shard
+    def key_rows(self):
+        """Rows of a key-switch key on this rank: num_all, or its shard's."""
+        cfg = self.ctx.config
+        sh = self.shard
+        return cfg.num_all if sh is None else len(range(sh.rank, cfg.num_all, sh.mp))
+
+    def shard_key(self, key):
+        """This rank's rows of a key-switch key [dnum, 2, num_all, N] (a
+        tensor or a host array), a copy, so the full key can be freed; the
+        key itself without a shard."""
+        sh = self.shard
+        if sh is None:
+            return key
+        part = key[:, :, sh.rank::sh.mp]
+        return part.contiguous() if isinstance(part, torch.Tensor) else np.ascontiguousarray(part)
+
+    def _own_slices(self, nl):
+        """This rank's positions in Q^{(nl)}P order: (Q slice, special
+        slice), the global rows g < nl and num_q <= g with g % mp == rank."""
+        sh = self.shard
+        nq = self.ctx.config.num_q
+        mp, r = (1, 0) if sh is None else (sh.mp, sh.rank)
+        return slice(r, nl, mp), slice(nl + (r - nq) % mp, None, mp)
+
+    def own_rows(self, x, nl):
+        """This rank's rows of x [..., nl + alpha, N] in Q^{(nl)}P order
+        (x itself without a shard)."""
+        if self.shard is None:
+            return x
+        qs, ps = self._own_slices(nl)
+        return torch.cat([x[..., qs, :], x[..., ps, :]], dim=-2)
+
+    def _own_globals(self, nl):
+        """The global prime rows of own_rows, in order."""
+        qs, ps = self._own_slices(nl)
+        sp = self._sp_rows()
+        return list(range(nl))[qs] + sp[ps.start - nl::ps.step]
+
+    def _shard_layout(self, nl):
+        """(rows each rank owns at most, int64 index of Q^{(nl)}P order into
+        the ranks' padded rows laid end to end) of the mp axis at nl."""
+        sh = self.shard
+        key = ("layout", nl, sh.mp)
+        hit = self._tabs.get(key)
+        if hit is None:
+            nq, alpha = self.ctx.config.num_q, self.ctx.config.alpha
+            glob = list(range(nl)) + [nq + i for i in range(alpha)]
+            owned = [[g for g in glob if g % sh.mp == r] for r in range(sh.mp)]
+            rmax = max(map(len, owned))
+            idx = [(g % sh.mp) * rmax + owned[g % sh.mp].index(g) for g in glob]
+            hit = self._tabs[key] = (rmax, torch.tensor(idx, dtype=torch.int64,
+                                                        device=self.device))
+        return hit
+
+    def assemble_rows(self, parts, nl):
+        """Q^{(nl)}P rows [..., nl + alpha, N] from every rank's own_rows
+        part (parts[r]: rank r's [..., R_r, N], or all of them stacked and
+        padded to the same R): the interleave that follows the all-gather."""
+        rmax, idx = self._shard_layout(nl)
+        if not isinstance(parts, torch.Tensor):
+            parts = torch.stack([_pad_rows(p, rmax) for p in parts])
+        x = parts.movedim(0, -3)
+        x = x.reshape(x.shape[:-3] + (-1, self.n))
+        return x.index_select(-2, idx)
+
+    def _gather_qp(self, x0, x1, nl):
+        """Both key-switch accumulators over all of Q^{(nl)}P from this
+        rank's rows of them: one all-gather over the mp group, issued
+        whatever its size. Without a shard, x0 and x1 themselves."""
+        sh = self.shard
+        if sh is None:
+            return x0, x1
+        rmax, _ = self._shard_layout(nl)
+        full = self.assemble_rows(sh.all_gather(_pad_rows(torch.stack([x0, x1]), rmax)), nl)
+        return full[0], full[1]
+
     def _ks_inner(self, digits, nl, ksk):
-        """Inner product of ModUp digits [..., nd, nl + alpha, N] with a
-        key-switch key -> (acc0, acc1) int32 [..., nl + alpha, N] over the
-        QP basis."""
+        """Inner product of ModUp digits [..., nd, R, N] with a key-switch
+        key -> (acc0, acc1) int32 [..., R, N] over the QP basis (R = nl +
+        alpha, or this rank's rows of them under a row shard, with the
+        key's shard)."""
         nd = digits.shape[-3]
-        num_q = self.ctx.config.num_q
-        q = self._q(list(range(nl)) + self._sp_rows())
-        k = torch.cat([ksk[:nd, :, :nl], ksk[:nd, :, num_q:]], dim=2)
+        qs, _ = self._own_slices(nl)
+        n_lo = len(range(qs.start, nl, qs.step))              # own Q rows < nl
+        n_q = len(range(qs.start, self.ctx.config.num_q, qs.step))
+        q = self._q(self._own_globals(nl))
+        k = torch.cat([ksk[:nd, :, :n_lo], ksk[:nd, :, n_q:]], dim=2)
         d = digits.to(torch.int64)
         acc0 = _sum_mod(d * k[:, 0].to(torch.int64) % q, q, dim=-3)
         acc1 = _sum_mod(d * k[:, 1].to(torch.int64) % q, q, dim=-3)
@@ -312,7 +462,7 @@ class Evaluator:
         """Switch the key under `c_ntt` (int32 [..., nl, N]) -> (b_add,
         a_add)."""
         acc0, acc1 = self._ks_inner(self.modup(c_ntt, nl), nl, ksk)
-        return self._mod_down_pair(acc0, acc1, nl)
+        return self._mod_down_pair(*self._gather_qp(acc0, acc1, nl), nl)
 
     # ------------------------------------------------------------ mul / rot
     def mul_ct(self, a, b, nl, rlk):
@@ -373,7 +523,7 @@ class Evaluator:
         outs = []
         for shift, gk in zip(shifts, gks):
             acc0, acc1 = self._ks_inner(self.automorphism(digits, shift), nl, gk)
-            b, a = self._mod_down_pair(acc0, acc1, nl)
+            b, a = self._mod_down_pair(*self._gather_qp(acc0, acc1, nl), nl)
             outs.append(_stack2(add_mod(self.automorphism(c0, shift), b, q), a))
         return torch.stack(outs)
 
@@ -409,11 +559,12 @@ class Evaluator:
         """One tap of the bank (the reference's _rot_mac_chunk, vmapped over
         a chunk of taps, is this loop body)."""
         kq = self._q(range(nl))
-        kqp = self._q(list(range(nl)) + self._sp_rows())
+        kqp = self._q(self._own_globals(nl))
         a0, a1 = self._ks_inner(self.automorphism(digits, shift), nl, gk)
         rc = mul_mod(self.automorphism(c0, shift), pt[:nl], kq)
-        r0 = mul_mod(a0, pt, kqp)
-        r1 = mul_mod(a1, pt, kqp)
+        pto = self.own_rows(pt, nl)
+        r0 = mul_mod(a0, pto, kqp)
+        r1 = mul_mod(a1, pto, kqp)
         if accs is not None:
             rc = add_mod(rc, accs[0], kq)
             r0 = add_mod(r0, accs[1], kqp)
@@ -429,7 +580,7 @@ class Evaluator:
         out = None
         if accs is not None:
             rc, r0, r1 = accs
-            b, a = self._mod_down_pair(r0, r1, nl)
+            b, a = self._mod_down_pair(*self._gather_qp(r0, r1, nl), nl)
             out = _stack2(add_mod(rc, b, q), a)
         if plain_vals:
             vs = torch.stack(list(plain_vals)).to(torch.int64)   # [J, ..., 2, nl, N]

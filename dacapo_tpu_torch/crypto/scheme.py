@@ -64,9 +64,30 @@ class Scheme:
         self.keys.galois.set_budget(budget_bytes)
 
     def galois_key_bytes(self):
-        """Device bytes of ONE rotation key for this context."""
-        cfg = self.ctx.config
-        return cfg.dnum * 2 * cfg.num_all * self.ctx.n * 4
+        """Device bytes of ONE rotation key for this context (its shard's,
+        once shard_keys ran)."""
+        return self.ctx.config.dnum * 2 * self.ev.key_rows() * self.ctx.n * 4
+
+    def shard_keys(self, shard):
+        """Split the key switch's QP rows over a mesh's mp axis (shard: an
+        ops.RowShard): from now on every key-switch key keeps only this
+        rank's rows, those made later too, and the Evaluator's key switches
+        all-gather their accumulators over shard.group (crypto/ops.py). The
+        keys move into a new KeySet, key by key, so anything captured over
+        the old one captures again. Keys split once stay split: a second
+        call raises."""
+        cur = self.ev.shard
+        if cur is not None:
+            raise ValueError(f"the keys already hold rank {cur.rank} of an mp axis of {cur.mp}")
+        old = self.keys
+        self.ev.shard = shard
+        part = self.ev.shard_key
+        self.keys = KeySet(
+            s_ntt=old.s_ntt, pk=old.pk,
+            rlk=None if old.rlk is None else part(old.rlk),
+            conj=None if old.conj is None else part(old.conj),
+            galois=old.galois.map_keys(part), shard=(shard.mp, shard.rank))
+        return self.keys
 
     def enable_native_bootstrap(self, cfg=None):
         """Build the native bootstrapper (ModRaise, CoeffToSlot, EvalMod,

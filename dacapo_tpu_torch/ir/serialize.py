@@ -1,7 +1,8 @@
 """Earth IR (de)serialization + reference-compatible constant files (.cst).
 
-Port of dacapo_tpu/ir/serialize.py in pure Python (the reference's native
-.cst fast path writes the same bytes). .cst layout (reference
+Port of dacapo_tpu/ir/serialize.py: .cst files go through the native
+artifact core (vm/native.py) unless DACAPO_TPU_NO_NATIVE is set, and the
+pure-Python reader and writer give the same bytes. .cst layout (reference
 lib/Dialect/Earth/Transforms/ElideConstant.cpp:40-53 write side,
 lib/Runtime/SEAL_HEVM.cpp:182-200 read side):
     int64 count, then per constant: int64 len, f64 data[len].
@@ -17,6 +18,9 @@ from .earth import Function, Op, ScaleType, Value
 
 
 def write_cst(payloads, path):
+    from ..vm import native
+    if native.write_cst_native(payloads, path):
+        return
     with open(path, "wb") as f:
         f.write(struct.pack("<q", len(payloads)))
         for arr in payloads:
@@ -26,6 +30,10 @@ def write_cst(payloads, path):
 
 
 def read_cst(path):
+    from ..vm import native
+    out = native.read_cst_native(path)
+    if out is not None:
+        return out
     out = []
     with open(path, "rb") as f:
         (count,) = struct.unpack("<q", f.read(8))

@@ -68,6 +68,11 @@ the executor's batch path (vm/executor.py:run_encrypted_batch) and returns
 `precompile_batch(B)` after `load` captures the batch graphs (the oracle's
 and the segments') before the first batch
 (`load_seconds["batch_oracle_capture"]`, `["batch_capture"]`).
+`runBatch(mesh=...)` and `precompile_batch(B, mesh=...)` run the batch
+over a parallel.mesh.Mesh: every rank of it runs the same calls, holds its
+rows of the keys and its block of the batch, and gets the whole result
+(vm/executor.py). Keys a native bootstrap makes after the keys were split
+are not written to the keyset directory, which holds full keys only.
 """
 
 import json
@@ -299,23 +304,31 @@ class HEVM:
             parts.append("capture")
         self.load_seconds = dict(zip(parts, np.diff(laps).tolist()))
 
-    def precompile_batch(self, batch):
+    def precompile_batch(self, batch, mesh=None):
         """Capture, on the card, the graphs of the batch path for `batch`
         ciphertexts: the device oracle's, one per bootstrap cache key, and
         one per segment window; load_seconds["batch_oracle_capture"] and
         ["batch_capture"] get their seconds. A later batch of another size
-        captures its own at first use. Returns the number of segment graphs
-        (0 on the CPU, which runs the batch eagerly, and with jit=False)."""
+        captures its own at first use. mesh: the batch's mesh (runBatch);
+        the oracle's graphs then take all `batch` rows and the segments'
+        this rank's block of them. Returns the number of segment graphs (0
+        on the CPU, which runs the batch eagerly, and with jit=False)."""
         if self.executor is None:
             raise RuntimeError("load a program first")
         if self.device.type != "cuda" or self.jit is False:
             return 0
+        rows = batch
+        if mesh is not None:
+            from ..parallel.mesh import batch_rows
+            self.executor.use_mesh(mesh)
+            block = batch_rows(mesh, batch)
+            rows = block.stop - block.start
         t0 = time.perf_counter()
         if self.executor.capture_oracle(batch):
             torch.cuda.synchronize(self.device)
             self.load_seconds["batch_oracle_capture"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        graphs = self.executor.precompile_segments(batch=batch)
+        graphs = self.executor.precompile_segments(batch=rows)
         torch.cuda.synchronize(self.device)
         self.load_seconds["batch_capture"] = time.perf_counter() - t0
         return graphs
@@ -385,7 +398,8 @@ class HEVM:
     def runBatch(self, mesh=None):
         """Evaluate the program over the batches setInputBatch encrypted. A
         full VM returns the decrypted [B, results, slots]; a server returns
-        None. mesh must be None: the mesh is not ported (one card)."""
+        None. mesh: a parallel.mesh.Mesh that every rank calls this over
+        (module docstring)."""
         return self._evaluate(self._arg_cts_batch, "not set (setInputBatch)",
                               lambda args: self.executor.run_encrypted_batch(args, mesh=mesh))
 
@@ -403,7 +417,8 @@ class HEVM:
             self._out = None
             return None
         self._out = self.executor.decrypt_outputs()
-        if (len(keys.galois), keys.conj is not None) != n_keys:
+        keys = self.scheme.keys          # a mesh's first batch replaces them
+        if (len(keys.galois), keys.conj is not None) != n_keys and keys.shard is None:
             # keys the native bootstrap made during the run (the CPU makes
             # them lazily) persist for later runs
             keymod.save_keyset(keys, self.keyset_dir, skip_existing=True)

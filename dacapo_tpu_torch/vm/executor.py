@@ -25,7 +25,19 @@ Port of dacapo_tpu/vm/executor.py, three of its paths:
   cached apart from the single-request graphs. A boot window refreshes the
   batch: the oracle with `bootstrap_batch` (on the card one graph per cache
   key and B, `capture_oracle(batch=B)`), the native bootstrap row by row,
-  eagerly, as the reference does. There is no mesh: one card.
+  eagerly, as the reference does.
+* the batch path over a mesh (`run_encrypted_batch(mesh=...)`, the
+  reference's shardings of parallel/mesh.py, here on torch.distributed):
+  every rank is given the whole batch and keeps its contiguous block of
+  rows on the dp axis (np.array_split order), so it captures the batch
+  graphs of its own block size; on the mp axis the key switch's QP rows
+  are split (crypto/ops.py: one all-gather of the accumulators per key
+  switch, recorded into the window graphs on the card) and each rank keeps
+  only its rows of every key (Scheme.shard_keys). An oracle boot window
+  all-gathers the batch over dp and refreshes all B rows, so its draws are
+  those of mesh=None, and keeps this rank's; a native bootstrap draws
+  nothing and runs this rank's rows only. The results are all-gathered
+  over dp: every rank returns the whole batch.
 
 `jit=True` takes the segment path too. The JAX package compiles a program
 without bootstraps as one function there; that whole-program graph is not
@@ -87,8 +99,7 @@ windows always decode in-graph. `SYNC_EVERY` bounds the reference's host
 uploads in flight (pinned streamed keys and plaintexts of every enqueued
 window); here the plaintext pool is on the device before the first
 request, and the key copies in flight are bounded by the arena's slots:
-stream order makes a copy wait for the windows that read its slot. The
-mesh (parallel/mesh.py) is not ported.
+stream order makes a copy wait for the windows that read its slot.
 
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
@@ -108,6 +119,7 @@ import torch
 
 from ..crypto.bootstrap import Bootstrapper, EmulatedBootstrapper
 from ..crypto.bootstrap_native import NativeBootstrapper
+from ..crypto.ops import RowShard
 from ..crypto.params import to_dev
 from ..crypto.scheme import Ciphertext
 from .fuse import ssa_expand, build_fuse_plan, OP_ROTMAC, OP_UPRESCALE, cipher_reads
@@ -238,6 +250,8 @@ class HEVMExecutor:
         self._seg_plan = None
         self._captured = None   # (what the graphs were captured for, {wi: graph})
         self._captured_batch = None   # the same for one batch size
+        self._mesh = None       # the mesh of the batch path, once use_mesh ran
+        self.mesh_collectives = 0   # mp all-gathers issued by graph replays
         self._arena = None      # galois-key slots of the graph windows (under a budget)
         self._arena_serial = 0
         # keys copied into arena slots, from the host and from the LRU's
@@ -982,7 +996,7 @@ class HEVMExecutor:
                   file=sys.stderr)
         maps, start, copies = plan_key_slots(seq, n)
         cfg = self.s.ctx.config
-        data = torch.empty((n, cfg.dnum, 2, cfg.num_all, self.s.ctx.n),
+        data = torch.empty((n, cfg.dnum, 2, self.ev.key_rows(), self.s.ctx.n),
                            dtype=torch.int32, device=galois.device)
         galois.reserve(n * kb + conj)
         self._arena_serial += 1
@@ -1053,7 +1067,8 @@ class HEVMExecutor:
         arena = self._arena
         stats = dict(
             windows=len(plan), graphs=len(graphs),
-            **{k: sum(g[k] for g in graphs.values()) for k in ("warmup_s", "capture_s")},
+            **{k: sum(g[k] for g in graphs.values())
+               for k in ("warmup_s", "capture_s", "collectives")},
             key_slots=0 if arena is None else len(arena["held"]),
             key_arena_bytes=0 if arena is None else arena["data"].nbytes,
             key_copies_planned=0 if arena is None else arena["copies"],
@@ -1126,12 +1141,19 @@ class HEVMExecutor:
         stream.synchronize()
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()       # instantiated as the capture ends
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
+        shard = self.ev.shard
+        gathers = shard.gathers if shard is not None else 0
+        # over a mesh the graph records NCCL all-gathers, whose process
+        # group's watchdog thread queries CUDA events while this thread
+        # captures: only this thread's calls must be capture-safe
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="global" if shard is None else "thread_local"):
             outs = body()
         t2 = time.perf_counter()
-        return dict(graph=graph, ins=ins, outs=outs, warmup_s=t1 - t0, capture_s=t2 - t1)
+        return dict(graph=graph, ins=ins, outs=outs, warmup_s=t1 - t0, capture_s=t2 - t1,
+                    collectives=(shard.gathers - gathers) if shard is not None else 0)
 
-    def _run_segmented(self, arg_cts, batch=None):
+    def _run_segmented(self, arg_cts, batch=None, boot=None):
         """Replay walk: per window, the bootstrap (boot: the device oracle
         replays its graph and returns a copy of the output), an eager run
         (no graph: a tiny window's _exec_stream, and on the CPU every other
@@ -1141,7 +1163,8 @@ class HEVMExecutor:
         SEGMENT_MIN_OPS ops first gets its keys staged into its arena slots.
         Returns copies of the outputs, since the next replay overwrites a
         graph's outputs. batch=B: every register holds B ciphertexts, and
-        the batch graphs replay."""
+        the batch graphs replay; boot(data, nl, scale, target) -> (data,
+        (nl2, scale)): a boot window's refresh, by default `_bootstrap`."""
         plan = self._segment_plan()
         graphs = self._graphs([(nl, sc) for _, nl, sc in arg_cts], batch)
         arena = self._key_arena()
@@ -1158,8 +1181,9 @@ class HEVMExecutor:
             if info["kind"] == "boot":
                 op = info["ops"][0]
                 nl, sc = meta[op.lhs]
-                ciphers[op.dst], meta[op.dst] = self._bootstrap(
-                    ciphers[op.lhs], nl, sc, op.rhs, batch)
+                ciphers[op.dst], meta[op.dst] = (
+                    boot(ciphers[op.lhs], nl, sc, op.rhs) if boot is not None
+                    else self._bootstrap(ciphers[op.lhs], nl, sc, op.rhs, batch))
                 kind = "boot"
             elif rec is None and self._graph_window(info):
                 self._seg_body(wi, info, ciphers, meta)     # the CPU
@@ -1173,6 +1197,7 @@ class HEVMExecutor:
                         buf.copy_(ciphers[r])
                 rec["graph"].replay()
                 self.replays += 1
+                self.mesh_collectives += rec["collectives"]
                 ciphers.update(zip(info["outs"], rec["outs"]))
                 for op in info["ops"]:
                     self._meta_step(op, meta)
@@ -1262,23 +1287,62 @@ class HEVMExecutor:
         return outs
 
     def run_encrypted_batch(self, arg_cts, mesh=None):
-        """Batched server entry (the reference's run_encrypted_batch with
-        mesh=None): arg_cts = [(data [B, 2, nl, N], nl, scale)], the same B
-        for every argument. Walks the segment plan over the batch (module
-        docstring): on the card as the batch graphs of B, captured at first
-        use unless precompile_segments(batch=B) ran; on the CPU eagerly.
+        """Batched server entry (the reference's run_encrypted_batch):
+        arg_cts = [(data [B, 2, nl, N], nl, scale)], the same B for every
+        argument. Walks the segment plan over the batch (module docstring):
+        on the card as the batch graphs of B, captured at first use unless
+        precompile_segments(batch=B) ran; on the CPU eagerly. mesh: a
+        parallel.mesh.Mesh this rank belongs to (every rank of it calls with
+        the same batch): the rank runs its block of rows (B >= dp, any B)
+        with its rows of the keys, and every rank gets the whole batch back.
         Leaves (outs [each [B, 2, nl, N]], out_meta) in _last_outputs and
         returns them."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh (parallel/mesh.py, ROADMAP A.14) is not ported: "
-                "run_encrypted_batch runs on one device, with mesh=None")
         sizes = {int(data.shape[0]) for data, _, _ in arg_cts}
         if len(sizes) != 1 or any(data.dim() != 4 for data, _, _ in arg_cts):
             raise ValueError("every argument must be a batch [B, 2, nl, N] of one B, got "
                              f"{[tuple(data.shape) for data, _, _ in arg_cts]}")
-        self._last_outputs = self._run_segmented(arg_cts, batch=sizes.pop())
+        b = sizes.pop()
+        if mesh is None:
+            if self._mesh is not None:
+                raise ValueError("this executor's keys are split over a mesh: pass it")
+            self._last_outputs = self._run_segmented(arg_cts, batch=b)
+            return self._last_outputs
+        from ..parallel.mesh import batch_rows, gather_batch
+        self.use_mesh(mesh)
+        rows = batch_rows(mesh, b)
+        mine = rows.stop - rows.start
+
+        def boot(data, nl, sc, target):
+            if isinstance(self.bootstrapper, EmulatedBootstrapper):
+                out, m2 = self._bootstrap(gather_batch(mesh, data, b), nl, sc, target, b)
+                return out[rows], m2
+            return self._bootstrap(data, nl, sc, target, mine)
+
+        outs, meta = self._run_segmented([(data[rows], nl, sc) for data, nl, sc in arg_cts],
+                                         batch=mine, boot=boot)
+        self._last_outputs = ([gather_batch(mesh, o, b) for o in outs], meta)
         return self._last_outputs
+
+    def use_mesh(self, mesh):
+        """Run the requests of this executor over `mesh` from now on (the
+        batch path's; run_encrypted_batch calls it): the scheme keeps this
+        rank's rows of every key-switch key (Scheme.shard_keys) and the
+        Evaluator's key switches gather over the mesh's mp group. A native
+        bootstrap's keys are made first, full, so that no key is drawn in a
+        request: every rank then has drawn the same. The graphs captured
+        over the full keys are dropped. Another mesh raises."""
+        if self._mesh is mesh:
+            return
+        if self._mesh is not None:
+            raise ValueError("this executor already runs over another mesh")
+        if isinstance(self.bootstrapper, NativeBootstrapper):
+            self.s.ensure_galois(self.bootstrapper.rotation_steps())
+            self.s.keygen.ensure_conj(self.s.keys)
+        self._captured = self._captured_batch = None
+        self.s.shard_keys(RowShard(mesh.mp, mesh.mp_rank, mesh.mp_group))
+        native = isinstance(self.bootstrapper, NativeBootstrapper)
+        self.key_bytes = (self.n_keys + native) * self.s.galois_key_bytes()
+        self._mesh = mesh
 
     def _run_trace(self, arg_cts):
         ciphers, meta = {}, {}

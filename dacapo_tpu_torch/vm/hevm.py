@@ -1,7 +1,8 @@
 """HEVM bytecode: binary-compatible with the reference .hevm format.
 
-Copy of dacapo_tpu/vm/hevm.py with the pure-Python reader, writer and
-validator only (the reference's optional ctypes core is not ported).
+Copy of dacapo_tpu/vm/hevm.py: save, load, validate and reuse_compact go
+through the native artifact core (vm/native.py) unless DACAPO_TPU_NO_NATIVE
+is set; the pure-Python reader, writer and validator are the other path.
 
 Layout (include/hecate/Support/HEVMHeader.h:10-35, write side
 lib/Dialect/CKKS/Transforms/EmitHEVM.cpp:109-119, read side
@@ -71,6 +72,9 @@ class HEVMProgram:
         return sorted({op.rhs for op in self.ops if op.opcode == OP_ROTATE})
 
     def save(self, path):
+        from . import native
+        if native.save_program(self, path):
+            return path
         return self._save_py(path)
 
     def _save_py(self, path):
@@ -94,6 +98,10 @@ class HEVMProgram:
 
     @classmethod
     def load(cls, path):
+        from . import native
+        p = native.load_program(path, cls, HEVMOp)
+        if p is not None:
+            return p
         return cls._load_py(path)
 
     @classmethod
@@ -121,7 +129,12 @@ class HEVMProgram:
 
     def validate(self):
         """-1 if the stream is well-formed, else the index of the first bad
-        op (-2: bad result descriptor)."""
+        op (-2: bad result descriptor). Uses the native core unless
+        DACAPO_TPU_NO_NATIVE is set."""
+        from . import native
+        rc = native.validate_program(self)
+        if rc is not None:
+            return rc
         return self._validate_py()
 
     def _validate_py(self):
@@ -161,6 +174,14 @@ class HEVMProgram:
             if r >= nct or not cdef[r]:
                 return -2
         return -1
+
+    def reuse_compact(self):
+        """Native liveness-based register compaction over the bytecode (the
+        reference's ReuseBuffer re-done on the artifact); returns a new
+        program, or self unchanged when DACAPO_TPU_NO_NATIVE is set."""
+        from . import native
+        p = native.reuse_buffers_program(self, type(self), HEVMOp)
+        return self if p is None else p
 
     def dump(self, limit=None):
         lines = [

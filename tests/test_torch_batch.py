@@ -15,9 +15,10 @@ the same argument ciphertexts:
 (d) HEVM setInputBatch/runBatch on the committed test_n11 MLP: [B, results,
     slots], equal to B single requests on the same ciphertexts, decrypted
     as the JAX package decrypts them; a server returns None;
-(e) a mesh raises (not ported: one card).
+(e) a batch of the wrong shape raises.
 The native bootstrap's batch is tests/test_torch_batch_native.py; the batch
-graphs on the card are tests/test_torch_batch_cuda.py."""
+graphs on the card are tests/test_torch_batch_cuda.py; the batch over a mesh
+is tests/test_torch_mesh.py."""
 
 from pathlib import Path
 
@@ -334,13 +335,9 @@ def test_server_run_batch_returns_none(runner):
         assert torch.equal(got, want)
 
 
-# ------------------------------------------------------------- (e) no mesh
-def test_mesh_raises(runner):
+# ---------------------------------------------------------- (e) bad shapes
+def test_batch_shape_raises(runner):
     vm = runner["vm"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        vm.runBatch(mesh=object())
     data, nl, scale = vm._arg_cts_batch[0]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        vm.executor.run_encrypted_batch([(data, nl, scale)], mesh="dp")
     with pytest.raises(ValueError, match="batch"):
         vm.executor.run_encrypted_batch([(data[0], nl, scale)])

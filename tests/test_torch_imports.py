@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of dacapo_tpu_torch (the
-planner, the compile harness, the CLI, the profiler, the model zoo and the
-benchmark programs among them), chip_smoke.py and
+planner, the compile harness, the CLI, the profiler, the model zoo, the
+benchmark programs, the mesh and the native artifact core among them), chip_smoke.py and
 scripts/torch_ntt_ab.py loads no JAX, nothing of
 dacapo_tpu and nothing of examples, and its entry points refuse to run on a
 card that is not there."""
@@ -44,6 +44,10 @@ SERVING = ["dacapo_tpu_torch.cli", "dacapo_tpu_torch.runtime.profiler",
                  "VGG16", "SqueezeNet", "MobileNet")]
 
 
+# the mesh and the native artifact core
+MESH = ["dacapo_tpu_torch.parallel.mesh", "dacapo_tpu_torch.vm.native"]
+
+
 def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.path.abspath(ROOT)
@@ -56,7 +60,8 @@ def test_no_jax_and_no_reference_package():
     assert proc.returncode == 0, proc.stderr
     names, bad = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(names) >= 77
-    assert set(PLANNER + SERVING) <= set(names), set(PLANNER + SERVING) - set(names)
+    assert set(PLANNER + SERVING + MESH) <= set(names), \
+        set(PLANNER + SERVING + MESH) - set(names)
     assert bad == [], bad
 
 
