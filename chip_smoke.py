@@ -10,7 +10,8 @@
    (N=2^15), at N=2^11, at test_n8 (N=2^8), at the rescale / ModUp
    shapes of tpu_n16 (N=2^16), and at every batch size the basic phase's
    server requests give the kernel at tpu_n14 (N=2^14) and tpu_n15
-   (BASIC_BATCHES), and times them (device time by CUDA events, L2 flushed
+   (BASIC_BATCHES) and the mesh's row subsets at tpu_n15
+   (MESH_SHARD_BATCHES), and times them (device time by CUDA events, L2 flushed
    before each run, median of 25; at tpu_n14 B=8 and 58 only);
 4. compiles, on the host, with the port's own tracer and planner
    (runtime/harness.py): the MLP (pars/40, tpu_n15) and the deep DaCapo
@@ -65,8 +66,8 @@
    keys (key budget 5,905,580,032 B: the load pins their host copies and
    makes the key arena); its load captures the segment graphs, each
    decoding its plaintexts in-graph and reading its keys from its arena
-   slots, and one oracle graph; two timed requests held to the same bar,
-   19 oracle replays, no plain NTT and no capture each, all 96 graphs
+   slots, and one oracle graph; one timed request held to the same bar,
+   19 oracle replays, no plain NTT and no capture, all 96 graphs
    replayed, the planned key copies and no LRU upload, device key bytes
    (arena and LRU) within the budget; the resident VM's second request
    (argument and oracle draws restored) gives the resident VM's output
@@ -86,10 +87,11 @@
    program the port compiled in 4 (depth 20, 2 bootstraps to level 14, 2^14
    slots) on a fresh keyset, the load running each bootstrap once (its galois keys,
    conjugation key and diagonals are made there) and capturing the graphs;
-   two timed segmented requests (RMS against the plaintext model <= 1e-4,
-   2 native bootstraps each, the NTT kernel launched in both modes, the
-   plain NTT never), the second rerun per-op with the input RNG restored
-   (bit-equal), one request timed by window and one profiled; (b) on the
+   one timed segmented request (RMS against the plaintext model <= 1e-4,
+   2 native bootstraps, the NTT kernel launched in both modes, the plain
+   NTT never), rerun per-op with the input RNG restored (bit-equal), one
+   request timed by window and one profiled (the NTT calls in its trace
+   at most those the wrapper and the replayed graphs' records count); (b) on the
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
    and nl=2 to level 14 (RMS <= 1e-5), timed twice, one bootstrap
    profiled (idle share, kernels, NTT calls of each mode on the device);
@@ -97,7 +99,7 @@
    GiB plan (DACAPO_TPU_HBM_BYTES = 2^34): its galois keys pass the key
    budget, so it loads on the segment path with a key arena (the native
    bootstraps read theirs through the LRU from pinned host memory) and
-   serves the two request ciphertexts of (c) again: RMS, 2 bootstraps
+   serves the request ciphertext of (c) again: RMS, 2 bootstraps
    (timed), every graph replayed, the planned key copies, device key bytes
    within the budget, outputs bit-equal to (c)'s; one request profiled;
 10. the basic phase: the five non-MLP rows of the basic list
@@ -133,21 +135,40 @@
     request) and at every batch size the two streaming parts' plaintext
     decodes launched (recorded by wrapping the Evaluator's decode),
     bit-equal to the plain NTT in both modes, the largest timed against its
-    bound; then the mesh's shard arithmetic at tpu_n15's top level
-    (parallel.mesh.shard_check, one process, no collective): each rank's
-    rows of a mul_ct key switch and of a rot-mac group's accumulators at
-    mp = 2 and 4, assembled, bit-equal to the unsharded ones, with the NTT
-    at every batch size those row subsets launched bit-equal to the plain
-    NTT, and the device key bytes one rank holds at each mp;
+    bound (the mesh's shard arithmetic is scripts/mesh_shard_check.py's;
+    3 holds the NTT at the batch sizes its row subsets launch,
+    MESH_SHARD_BATCHES);
 12. the profile phase: runtime/profiler.py's tpu_n14 latency table (CUDA
     events) into OUT_DIR, read back by ir/config.load_profile, every
     row positive and nondecreasing;
-13. the native artifact core (vm/native.py, csrc/hevm_core.cpp), built
+13. the native ResNet phase (serve_resnet_native): ResNet-20 `dacapo 40`
+    on tpu_n15b with native bootstraps (radix 7; K 24 and degree 40 for its
+    h = 192 secret, crypto/bootstrap_native.sized_for_secret), client to
+    server: the committed
+    artifacts/resnet_dacapo40_tpu_n15b (its .hevm and the trace of 7 by
+    their SHA-256), a full HEVM on the keyset of 9 (c) makes ResNet's missing
+    rotation keys without loading the program (HEVM.make_keys), the keyset
+    is saved in halves (the server's without the secret key), every earlier
+    VM is freed, a server HEVM loads the program (warming each of its
+    bootstrap signatures, which must equal expected.json's, and capturing
+    the graphs; no oracle graph), a client HEVM encrypts the golden input
+    and ships it; the server runs it per-op (jit=False, the warm-up), on
+    the segment path (timed, its bootstraps timed apart) and on the segment
+    path with the bound on the bootstrap's planes lifted (what it costs; no
+    plane dropped): each
+    request's result shipped back and decrypted by the client (RMS of the
+    10 logits <= 9.5152e-4), 18 native bootstraps, no key made, no plain
+    NTT, NTT calls in both modes (the wrapper's launches outside graphs
+    plus what each replayed graph recorded at capture), the output
+    ciphertexts byte-equal; load seconds by part, device bytes (keys, pool,
+    diagonals, peaks); then the NTT at every batch size the load and the
+    requests gave it, bit-equal to the plain NTT in both modes;
+14. the native artifact core (vm/native.py, csrc/hevm_core.cpp), built
     with g++ before the first phase: every .hevm and .cst the phases read
-    and write goes through it (its calls are counted and must be nonzero),
-    and the committed ResNet .hevm loads equal through it and the
-    pure-Python reader, both timed;
-14. prints the kernel table as one JSON line (launches: the profiled
+    and write goes through it (its calls are counted and must be nonzero;
+    its read time against the Python reader is
+    scripts/hevm_read_timing.py's);
+15. prints the kernel table as one JSON line (launches: the profiled
     ResNet request's, counted on the device; every path's under
     launches_by_path, and per ciphertext; the batch shapes' times), then
     the card's name and power limit, then {"ok": true, "device": {...}} as
@@ -158,6 +179,7 @@ Without CUDA, or outside a checkout of the repository, it exits 2.
 """
 
 import collections
+import dataclasses
 import gc
 import hashlib
 import json
@@ -175,6 +197,8 @@ RESNET_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "resnet_dacapo4
 RESNET_CKPT = os.path.join(REPO, "examples", "data", "resnet20.silu.model")
 RESNET_TRACE = os.path.join(REPO, "traced", "resnet_torch")     # gitignored
 NATIVE_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "deep_dacapo40_tpu_n15b")
+RESNET_NATIVE_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts",
+                                 "resnet_dacapo40_tpu_n15b")
 TEST_BOOT_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "native_test_boot")
 BASIC_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "basic_pars40")
 OUT_DIR = os.path.join(REPO, "chiprun_out")
@@ -189,9 +213,13 @@ RMS_BAR_NATIVE_BOOT = 1e-5     # the standalone tpu_n15b bootstrap (JAX on the T
 RMS_BAR_NATIVE_DEEP = 1e-4     # the deep DaCapo program on tpu_n15b
 RMS_BAR_BASIC = 2e-5           # the basic rows (JAX on the TPU: 1.05e-7 to 6.49e-6)
 N_TIMED = 25
-# timed requests of the ResNet (B=1, B=4 and streaming) and native paths:
-# two since the mesh phase joined, to keep the run inside its time limit
+# timed requests of the ResNet B=1 and B=4 paths (two since the mesh phase
+# joined) and of the standalone native bootstrap; the deep native VM, its 16
+# GiB plan and the 10 GiB streaming ResNet VM time one each since the native
+# ResNet phase joined (every check of theirs runs on that request), to keep
+# the run inside its time limit
 TIMED_REQUESTS = 2
+TIMED_REQUESTS_SHORT = 1
 RESNET_BATCH = 4               # ciphertexts a ResNet batch request carries
 BASIC_BATCH = 8                # and a Multivariate one
 BASIC_BATCH_ROW = "Multivariate"
@@ -294,6 +322,10 @@ BASIC_BATCHES = {
                 53, 57),
 }
 BASIC_TIMED_N14 = (8, 58)
+# NTT batch sizes of the mesh's row subsets at tpu_n15's top level (nl = 28)
+# at mp = 2 and 4: what parallel.mesh.shard_check launched on the card
+# (scripts/mesh_shard_check.py runs that check); checked here for equality
+MESH_SHARD_BATCHES = (25, 28, 29, 54, 58, 112)
 
 
 def kernel_checks(torch, params, ntt_mod, nk):
@@ -306,7 +338,8 @@ def kernel_checks(torch, params, ntt_mod, nk):
     # mod_raise_pair (2 x 60 rows) and ModUp (4 digits x 60 targets) at
     # nl = 60, the native bootstrap's shapes
     timed_n15 = (2, 3, 14, 28, 56, 84, 112, 2240)
-    checks = (("tpu_n15", timed_n15, timed_n15 + BASIC_BATCHES["tpu_n15"]),
+    checks = (("tpu_n15", timed_n15, timed_n15 + BASIC_BATCHES["tpu_n15"]
+               + MESH_SHARD_BATCHES),
               ("tpu_n14", BASIC_TIMED_N14, BASIC_BATCHES["tpu_n14"]),
               ("test_n11", (2, 37), (2, 37)),
               ("test_n8", (2, 9), (2, 9)), ("tpu_n16", (2, 42, 126), (2, 42, 126)),
@@ -411,36 +444,73 @@ def batch_kernel_checks(torch, params, ntt_mod, nk, profile, sizes, tag):
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                        "cuLaunchKernelEx")
 GRAPH_LAUNCH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
-# traces of one request before a lossy profile fails the run: a trace drops
-# kernel records now and then (scripts/trace_loss_probe.py: a few in 20
-# traces of one batch request lose a single NTT pass), and one run's three
-# traces of the streamed Multivariate batch all did
-PROFILE_ATTEMPTS = 6
+# traces of one request taken while each lost kernel records: a trace drops
+# records now and then (scripts/trace_loss_probe.py: in 60 traces of one
+# batch request, 1 held unequal NTT passes and 11 whole calls fewer than ran),
+# and a loss tends to repeat within a run (all six traces of the streamed
+# Multivariate batch in one run, of the Multivariate request and batch in
+# another); after the last, the trace's NTT calls are kept as a lower bound
+# of the counted ones
+PROFILE_ATTEMPTS = 3
 
 
-def graph_kernels(prof):
-    """Device kernels of each graph launch in a trace, in launch order: the
-    kernels (copies and sets left out) that carry the CUPTI correlation id of
-    a graph launch call, as every kernel node of a launched graph does; and
-    the count of every name among the device ops of those launches. None
-    where the trace does not expose its raw events."""
-    try:
-        events = prof.profiler.kineto_results.events()
-    except AttributeError:
-        return None, None
-    launch_ids = [e.correlation_id() for e in events if e.name() in GRAPH_LAUNCH_CALLS]
-    ids = set(launch_ids)
-    in_graphs = [e for e in events
-                 if str(e.device_type()).endswith("CUDA") and e.correlation_id() in ids]
-    per_id = collections.Counter(e.correlation_id() for e in in_graphs
-                                 if not e.name().startswith(("Memcpy", "Memset")))
-    names = collections.Counter(e.name()[:100] for e in in_graphs).most_common()
-    return [per_id[c] for c in launch_ids], names
+TraceRow = collections.namedtuple("TraceRow", "key device_type count self_device_time_total")
+
+
+def trace_summary(prof):
+    """One walk over a trace's raw events, in place of key_averages(),
+    which first builds torch.profiler's FunctionEvent tree of every event
+    (a ResNet request's trace holds ~555k device events), skipping the
+    events it skips: rows in the shape of key_averages()'s,
+    one per (name, device type) with its count and device microseconds
+    (nk.launches_in_profile reads them), and the device kernels of each
+    graph launch, in launch order: the kernels (copies and sets left out)
+    that carry the CUPTI correlation id of a graph launch call, as every
+    kernel node of a launched graph does; and the count of every name among
+    the device ops of those launches."""
+    from torch.autograd.profiler_util import _filter_name
+    events = prof.profiler.kineto_results.events()
+    rows = {}
+    launch_ids, by_corr = [], collections.defaultdict(list)
+    for e in events:
+        name = e.name()
+        # the events key_averages() leaves out: bookkeeping names, and the
+        # hidden ones (records of kernels outside the profiled window)
+        if _filter_name(name) or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        cuda = str(e.device_type()).endswith("CUDA")
+        r = rows.get((name, cuda))
+        if r is None:
+            r = rows[(name, cuda)] = [0, 0]
+        r[0] += 1
+        if cuda:
+            r[1] += e.duration_ns()
+            by_corr[e.correlation_id()].append(name)
+        elif name in GRAPH_LAUNCH_CALLS:
+            launch_ids.append(e.correlation_id())
+    out = [TraceRow(name, "DeviceType.CUDA" if cuda else "DeviceType.CPU", n, ns / 1e3)
+           for (name, cuda), (n, ns) in rows.items()]
+    in_graphs = [name for c in set(launch_ids) for name in by_corr.get(c, ())]
+    per_graph = [sum(1 for name in by_corr.get(c, ()) if not name.startswith(("Memcpy", "Memset")))
+                 for c in launch_ids]
+    names = collections.Counter(name[:100] for name in in_graphs).most_common()
+    return out, per_graph, names
 
 
 def graph_replays(executor):
     """Graph replays so far: the segment graphs' and the device oracle's."""
     return executor.replays + getattr(getattr(executor, "bootstrapper", None), "replays", 0)
+
+
+def graph_ntt(executor):
+    """NTT calls the replayed graphs ran so far, as each graph recorded
+    them at capture: the segment graphs' and the device oracle's."""
+    out = dict.fromkeys(("ntt_fwd_cuda", "ntt_inv_cuda"), 0)
+    for rec in (getattr(executor, "replayed_ntt", {}),
+                getattr(getattr(executor, "bootstrapper", None), "replayed_ntt", {})):
+        for k, v in rec.items():
+            out[k] += v
+    return out
 
 
 def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_loss_ok=False):
@@ -461,20 +531,26 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     trace held one NTT call of each mode fewer than the wrapper launched, in
     two runs, and 69,890 device kernels and copies against 69,895 kernel
     launch calls).
+    ntt_counted: the NTT calls the request ran, counted without the trace:
+    the wrapper's launches plus what each replayed graph recorded at
+    capture (graph_ntt); a trace that holds more is refused as one that lost
+    records is, and the run fails if the last one does.
     A trace whose NTT passes are unequal (nk.TraceLossError: it lost a
     kernel record; a ResNet request's trace of ~555k device kernels once held
     one pass-A kernel fewer than pass-B), or, without trace_loss_ok, that
     holds fewer NTT calls than the wrapper launched (the streaming decode's
     trace once held 418 of 420, and 9,194 device kernels and copies against
-    9,240 kernel launch calls), gives no numbers: the request is profiled
-    again, up to PROFILE_ATTEMPTS times, and the run fails if every trace
-    lost records. `request` must be safe to repeat; plain NTT calls
-    are summed over all attempts, and lossy_traces lists the refused ones."""
+    9,240 kernel launch calls), is refused: the request is profiled again,
+    up to PROFILE_ATTEMPTS times. If every trace lost records, the last one
+    gives the numbers, its NTT calls (each mode's larger pass count) a lower
+    bound of ntt_counted (ntt_trace_short_by). `request` must be safe to
+    repeat; plain NTT calls are summed over all attempts, and lossy_traces
+    lists the refused ones."""
     from torch.profiler import profile, ProfilerActivity
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     lossy, plain = [], {}
-    for _ in range(PROFILE_ATTEMPTS):
-        replays0 = graph_replays(executor)
+    for attempt in range(PROFILE_ATTEMPTS):
+        replays0, graph_ntt0 = graph_replays(executor), graph_ntt(executor)
         torch.cuda.synchronize()
         reset_counts(nk, ntt_mod)
         with profile(activities=acts) as prof:
@@ -482,11 +558,20 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
             request()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
         wrapper = dict(nk.LAUNCHES)
         plain = {k: plain.get(k, 0) + v for k, v in ntt_mod.CALLS.items()}
         replays = graph_replays(executor) - replays0
-        averages = prof.key_averages()
+        counted = {k: wrapper[k] + v - graph_ntt0[k] for k, v in graph_ntt(executor).items()}
+        averages, per_graph, graph_names = trace_summary(prof)
+        del prof
+        trace_s = time.perf_counter() - t1
+        passes = nk.passes_in_profile(averages)
+        over = {k: ab for k, ab in passes.items() if max(ab) > counted[k]}
         try:
+            if over:
+                raise nk.TraceLossError(f"the trace holds more NTT passes {over} than the "
+                                        f"wrapper and the graphs' records count {counted}")
             ntt_launches = nk.launches_in_profile(averages)
             short = {k: wrapper[k] - ntt_launches[k] for k in wrapper
                      if ntt_launches[k] < wrapper[k]}
@@ -496,12 +581,19 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
             break
         except nk.TraceLossError as e:
             lossy.append(str(e))
-            log(f"[{tag}] the trace lost kernel records ({e}): profiling the request again")
-            time.sleep(1.0)
-    else:
-        raise AssertionError(f"[{tag}] all {PROFILE_ATTEMPTS} traces lost kernel records: "
-                             f"{lossy}")
-    per_graph, graph_names = graph_kernels(prof)
+            if attempt == PROFILE_ATTEMPTS - 1:
+                if over:
+                    raise AssertionError(f"[{tag}] every trace lost kernel records, the last "
+                                         f"one held more than ran: {lossy}")
+                ntt_launches = {k: max(ab) for k, ab in passes.items()}
+                short = {k: counted[k] - v for k, v in ntt_launches.items() if v < counted[k]}
+                log(f"[{tag}] all {PROFILE_ATTEMPTS} traces lost kernel records ({lossy}): "
+                    f"the last one's numbers are kept, its NTT calls {ntt_launches} a lower "
+                    f"bound of the {counted} counted")
+            else:
+                log(f"[{tag}] the trace lost kernel records ({e}): profiling the request "
+                    "again")
+                time.sleep(1.0)
     rows = []
     calls = {}
     for e in averages:
@@ -519,13 +611,13 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     ntt = sum(r[0] for r in rows if "ntt_pass" in r[2]) / 1e6
     eager = sum(calls.get(k, 0) for k in KERNEL_LAUNCH_CALLS)
     graph_calls = sum(calls.get(k, 0) for k in GRAPH_LAUNCH_CALLS)
-    out = dict(wall_s=wall, device_busy_s=busy, ntt_kernel_s=ntt,
+    out = dict(wall_s=wall, trace_s=trace_s, device_busy_s=busy, ntt_kernel_s=ntt,
                device_ops=sum(r[1] for r in rows), replays=replays,
                eager_kernel_launches=eager, graph_launch_calls=graph_calls,
                host_launches=replays + eager, launch_calls=calls,
-               ntt_launches=ntt_launches, ntt_wrapper_launches=wrapper,
+               ntt_launches=ntt_launches, ntt_wrapper_launches=wrapper, ntt_counted=counted,
                plain_ntt_calls=plain, lossy_traces=lossy,
-               graph_kernels=None if per_graph is None else dict(
+               graph_kernels=dict(
                    launches=len(per_graph), total=sum(per_graph),
                    largest=max(per_graph, default=0), per_launch=per_graph,
                    device_ops_by_name=graph_names),
@@ -538,16 +630,14 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     if graph_calls != replays:
         log(f"[{tag}] note: the profiler saw {graph_calls} graph launches, the executor "
             f"and the oracle counted {replays} replays")
-    if per_graph is None:
-        log(f"[{tag}] kernels per graph launch: not measured (no raw trace events)")
-    elif per_graph:
+    if per_graph:
         log(f"[{tag}] kernels in the {len(per_graph)} graph launches: {sum(per_graph)} "
             f"(largest {max(per_graph)})")
-    log(f"[{tag}] NTT calls the device ran {ntt_launches}, the wrapper launched outside "
-        f"graphs {wrapper}, plain NTT calls {plain}")
+    log(f"[{tag}] NTT calls the device ran {ntt_launches}, counted {counted} (the wrapper "
+        f"launched outside graphs {wrapper}), plain NTT calls {plain}")
     out["ntt_trace_short_by"] = short
     if short:
-        log(f"[{tag}] the trace holds fewer NTT calls than the wrapper launched, short by "
+        log(f"[{tag}] the trace holds fewer NTT calls than were counted, short by "
             f"{short}: it dropped records (device kernels and copies {out['device_ops']}, "
             f"kernel launch calls {eager})")
     elif replays == 0 and ntt_launches != wrapper:
@@ -556,7 +646,8 @@ def profile_request(torch, request, tag, executor, nk, ntt_mod, cpu=True, trace_
     if busy:
         log(f"[{tag}] request (profiled) wall {wall:.4f} s, device busy {busy:.4f} s "
             f"(idle share {1 - busy / wall:.3f}), {out['device_ops']} device kernels and copies, "
-            f"NTT kernel {ntt:.4f} s ({ntt / busy:.3f} of device time)")
+            f"NTT kernel {ntt:.4f} s ({ntt / busy:.3f} of device time); the trace read in "
+            f"{trace_s:.2f} s")
         for r in rows[:12]:
             log(f"[{tag}]   {r[0] / 1e3:9.3f} ms  x{r[1]:<6} {r[2][:90]}")
     else:
@@ -1059,8 +1150,8 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     plaintexts must stream (the compact pool) and so must its galois keys:
     the load pins their host copies and makes the key arena, and captures
     the segment graphs, each decoding its plaintexts in-graph and reading
-    its keys from its arena slots, and one oracle graph. Two timed
-    requests are held to the RMS bar, 19 oracle replays, no plain NTT and no
+    its keys from its arena slots, and one oracle graph. A timed request
+    is held to the RMS bar, 19 oracle replays, no plain NTT and no
     capture each, every graph window replayed, the planned key copies and
     no LRU upload (no key read outside the arena), the device key bytes
     (arena and LRU) within the key budget; the resident VM's second request
@@ -1089,7 +1180,6 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         out["load_s"] = time.perf_counter() - t0
     finally:
         del os.environ["DACAPO_TPU_HBM_BYTES"]
-    shutil.rmtree(RESNET_TRACE)
     ex, bs = vm.executor, vm.executor.bootstrapper
     galois = vm.scheme.keys.galois
     cap = out["capture"] = ex.capture_stats
@@ -1133,7 +1223,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
 
     requests = []
     graphs = ex._captured
-    for i in range(TIMED_REQUESTS):
+    for i in range(TIMED_REQUESTS_SHORT):
         reset_counts(nk, ntt_mod)
         bs.calls = 0
         replays0, seg0 = bs.replays, ex.replays
@@ -1384,7 +1474,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
     kept = dict(vm=vm, x=x, want=want, graphs=ex.capture_stats["graphs"], requests=[])
-    for i in range(TIMED_REQUESTS):
+    for i in range(TIMED_REQUESTS_SHORT):
         reset_counts(nk, ntt_mod)
         calls0, n_keys0 = bs.calls, len(keys.galois)
         torch.cuda.reset_peak_memory_stats()
@@ -1417,7 +1507,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
             raise AssertionError(f"the NTT kernel did not carry the request: {r}")
         if r["keys_made"]:
             raise AssertionError("a request made keys the load should have made")
-        if i == 1:
+        if i == TIMED_REQUESTS_SHORT - 1:
             kept_state, kept_outs = state, ex._last_outputs[0]
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
@@ -1432,9 +1522,9 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     out["per_op_request_s"] = time.perf_counter() - t0
     out["segment_equals_per_op"] = all(
         torch.equal(a, b) for a, b in zip(ex._last_outputs[0], kept_outs))
-    log(f"[native] request median of {TIMED_REQUESTS} (segment) "
+    log(f"[native] request median of {TIMED_REQUESTS_SHORT} (segment) "
         f"{out['request_median_s']:.3f} s; the "
-        f"second per-op {out['per_op_request_s']:.3f} s, output ciphertexts bit-equal: "
+        f"last per-op {out['per_op_request_s']:.3f} s, output ciphertexts bit-equal: "
         f"{out['segment_equals_per_op']}")
     if not out["segment_equals_per_op"]:
         raise AssertionError("the deep program's segment and per-op outputs differ")
@@ -1469,6 +1559,10 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     finally:
         del bs.bootstrap
     prof["bootstrap_s"] = boot_s
+    # the NTT calls as the native ResNet phase counts them, without a trace
+    # (profile_request's ntt_counted, which the trace may not pass)
+    log(f"[native] NTT calls counted by the wrapper and the graphs' records "
+        f"{prof['ntt_counted']}, in the trace {prof['ntt_launches']}")
     req_launches = prof["ntt_launches"]
     if min(req_launches.values()) <= 0 or any(prof["plain_ntt_calls"].values()):
         raise AssertionError(f"the profiled deep request: NTT {req_launches}, plain "
@@ -1523,8 +1617,8 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     a budget (their device copies go to the host), the load pins their host
     copies and makes the key arena of the graph windows; the native
     bootstraps now read their keys through the key store's LRU from pinned
-    host memory. The resident VM's two request ciphertexts are served
-    again (run_encrypted): RMS, 2 native bootstraps, every graph window
+    host memory. The resident VM's request ciphertext is served again
+    (run_encrypted): RMS, 2 native bootstraps, every graph window
     replayed, the planned key copies, device key bytes within the budget,
     outputs bit-equal to the resident executor's; the bootstraps are timed;
     one request profiled. Returns (results, the NTT calls of the profiled
@@ -1637,6 +1731,265 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
         raise AssertionError(f"the profiled deep request under the budget: NTT "
                              f"{prof['ntt_launches']}, plain {prof['plain_ntt_calls']}")
     return out, prof["ntt_launches"]
+
+
+def release_host_cache(torch):
+    """Return the pinned host blocks PyTorch's caching host allocator keeps
+    after their tensors are gone (a key budget's slabs), where this PyTorch
+    has the call."""
+    for name in ("_accelerator_emptyHostCache", "_host_emptyCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            return True
+    return False
+
+
+def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
+    """ResNet-20 `dacapo 40` on tpu_n15b with native bootstraps, client to
+    server, from the committed artifacts/resnet_dacapo40_tpu_n15b (the
+    .hevm's SHA-256 and the trace's .cst, the one the ResNet phase traced,
+    checked against its expected.json). A full HEVM("tpu_n15b") on the
+    native phase's keyset (which holds the bootstrap's 157 rotation keys
+    and the conjugation key) makes the program's missing rotation keys
+    without loading it (HEVM.make_keys); the keyset is saved in two halves,
+    the server's without the secret (save_keyset(parts=...)). With every VM
+    of the earlier phases and the full VM freed, a server HEVM loads the
+    program (no s_ntt; the load warms each bootstrap signature, which makes
+    the diagonals, and captures the segment graphs) and a client HEVM
+    encrypts the golden input and ships it. The server runs the shipped
+    ciphertext three times: per-op (jit=False), the warm-up, then on the
+    segment path, timed (its bootstraps timed apart, a synchronize around
+    each), under each path's bound on the bootstrap's planes; then on the
+    segment path again with that bound lifted (after a warm-up of the
+    signatures, which encodes the dropped planes again): what the bound
+    costs. Each: the client decrypts the shipped result (RMS of the 10
+    logits <= 9.5152e-4), all 18 bootstraps ran natively (the executor's
+    bootstrapper is the native one, the load captured no oracle graph), no
+    key was made, no plain NTT ran, and the NTT calls (the wrapper's
+    launches outside graphs plus what each replayed graph recorded at
+    capture) are positive in both modes; the output ciphertexts are
+    byte-equal; without the bound no plane was dropped. Then the NTT
+    is held to its plain version at every batch size the load and the
+    requests gave it. Returns (results, the NTT calls of the timed request,
+    the NTT check)."""
+    from dacapo_tpu_torch.crypto import keys as keymod
+    from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper
+    from dacapo_tpu_torch.models import cnn_he, resnet
+    with open(os.path.join(RESNET_NATIVE_ART, "expected.json")) as f:
+        expected = json.load(f)
+    hevm = os.path.join(RESNET_NATIVE_ART, "ResNet.hevm")
+    cst = os.path.join(RESNET_TRACE, "_hecate_ResNet.cst")
+    out = dict(hevm_sha256=sha256_file(hevm), cst_sha256=sha256_file(cst))
+    if (out["hevm_sha256"] != expected["hevm_sha256"]
+            or out["cst_sha256"] != expected["cst_sha256"]):
+        raise AssertionError(f"the native ResNet program or its trace differs from "
+                             f"expected.json: {out}")
+    model = resnet.get_model(RESNET_CKPT)
+    x = torch.randn(1, 3, 32, 32, dtype=torch.double,
+                    generator=torch.Generator().manual_seed(100))
+    with torch.no_grad():
+        want = model(x).numpy().ravel()
+    if not np.allclose(want, expected["golden_logits"], rtol=0, atol=1e-9):
+        raise AssertionError(f"torch model logits {want} differ from expected.json's")
+    packed = cnn_he.resnet_pack_input(x.numpy(), model, nt=expected["nt"])
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # the keys: the native phase's keyset, extended by a full VM
+    t0 = sync()
+    full = HEVM("tpu_n15b", keyset_dir=keydir)
+    t1 = sync()
+    made = full.make_keys(hevm)
+    t2 = sync()
+    halves = {}
+    for half, parts in (("server", ("public", "eval")), ("client", ("secret", "public"))):
+        d = halves[half] = os.path.join(work, f"resnet_n15b_{half}")
+        keymod.save_keyset(full.scheme.keys, d, parts=parts)
+        shutil.copyfile(os.path.join(keydir, "params.json"), os.path.join(d, "params.json"))
+    t3 = sync()
+    keys = out["keys"] = dict(
+        keyset_load_s=t1 - t0, keygen_s=t2 - t1, save_s=t3 - t2, galois_keys_made=made,
+        galois_keys=len(full.scheme.keys.galois), conj_key=full.scheme.keys.conj is not None,
+        server_keyset_bytes=sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                                os.walk(halves["server"]) for f in fs))
+    log(f"[resnet native] keys: the native phase's keyset read in {keys['keyset_load_s']:.3f} s, "
+        f"{made} rotation keys made in {keys['keygen_s']:.3f} s ({keys['galois_keys']} in all "
+        f"+ conjugation key), the halves saved in {keys['save_s']:.3f} s (server "
+        f"{keys['server_keyset_bytes']} bytes, no secret key)")
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys["host_cache_released"] = release_host_cache(torch)
+    shutil.rmtree(os.path.join(keydir, "galois"))       # the server's half holds them now
+
+    # the server: every VM of the earlier phases and the full VM are gone
+    torch.cuda.reset_peak_memory_stats()
+    out["allocated_at_load_start_bytes"] = torch.cuda.memory_allocated()
+    log(f"[resnet native] {out['allocated_at_load_start_bytes']} bytes allocated on the card "
+        "as the server's load starts")
+    shapes = NttShapes()        # stopped after the requests
+    shapes.start()
+    t0 = sync()
+    server = HEVM("tpu_n15b", keyset_dir=halves["server"], mode="server")
+    t1 = sync()
+    if server.scheme.keys.s_ntt is not None:
+        raise AssertionError("the server's keyset holds the secret key")
+    server.load(cst, hevm)
+    t2 = sync()
+    ex = server.executor
+    bs, galois = ex.bootstrapper, server.scheme.keys.galois
+    planes = bs.cached_planes() if isinstance(bs, NativeBootstrapper) else {}
+    conj_bytes = server.scheme.keys.conj.nbytes if server.scheme.keys.conj is not None else 0
+    out.update(keyset_load_s=t1 - t0, load_s=t2 - t1, load_parts_s=server.load_seconds,
+               instructions=len(server.prog.ops), capture=ex.capture_stats,
+               warmup=ex.bootstrap_stats, streaming=ex.streaming, pool_bytes=ex.pool_bytes,
+               plain_bytes=ex.plain_bytes, plaintext_budget_bytes=ex._pt_budget,
+               unique_plaintexts=ex.n_plains, galois_keys=len(galois),
+               galois_key_bytes_counted=ex.key_bytes, key_budget=galois.budget,
+               key_device_bytes=galois.device_bytes + conj_bytes, planes=planes,
+               plane_budget=bs.plane_budget if isinstance(bs, NativeBootstrapper) else None,
+               after_load_bytes=torch.cuda.memory_allocated(),
+               peak_load_bytes=torch.cuda.max_memory_allocated())
+    log(f"[resnet native] server keyset read {out['keyset_load_s']:.3f} s; load "
+        f"{out['load_s']:.3f} s (" + ", ".join(f"{k} {v:.3f}" for k, v in
+                                             server.load_seconds.items())
+        + f"); {out['instructions']} instructions; {ex.n_plains} unique plaintexts, streaming "
+        f"{ex.streaming} (pool {ex.pool_bytes} bytes, resident {ex.plain_bytes}, budget "
+        f"{ex._pt_budget}); {len(galois)} galois keys + conjugation key, device key bytes "
+        f"{out['key_device_bytes']} (counted {ex.key_bytes}, budget {galois.budget}); "
+        f"bootstrap signatures warmed {ex.bootstrap_stats and ex.bootstrap_stats['signatures']}"
+        f", diagonals and constants held {planes} under a bound of {out['plane_budget']} bytes "
+        f"(the warm-up dropped {ex.bootstrap_stats and ex.bootstrap_stats['evictions']} "
+        f"signature groups); graphs {ex.capture_stats}; "
+        f"{out['after_load_bytes']} bytes allocated after load, peak {out['peak_load_bytes']}")
+    if (not isinstance(bs, NativeBootstrapper)
+            or dataclasses.asdict(bs.cfg) != expected["bootstrap_config"]):
+        raise AssertionError(f"the server does not bootstrap natively with "
+                             f"{expected['bootstrap_config']}: {bs!r}")
+    if ("bootstrap_warmup" not in server.load_seconds or "capture" not in server.load_seconds
+            or "oracle_capture" in server.load_seconds):
+        raise AssertionError(f"the server's load: {server.load_seconds}")
+    if ex.bootstrap_stats["signatures"] != expected["boot_signatures"]:
+        raise AssertionError(f"the load warmed {ex.bootstrap_stats['signatures']}, "
+                             f"expected.json has {expected['boot_signatures']}")
+
+    client = HEVM("tpu_n15b", keyset_dir=halves["client"], mode="client")
+    client.loadClient(hevm)
+    t0 = sync()
+    client.setInput(0, packed)
+    blob = client.getCtxt(0)
+    out["client_encrypt_s"] = sync() - t0
+    out["blob_bytes"] = len(blob)
+    server.setCtxt(0, blob)
+
+    boot_s = []
+    native = bs.bootstrap
+
+    def timed_bootstrap(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = native(*args)
+        torch.cuda.synchronize()
+        boot_s.append(time.perf_counter() - t0)
+        return res
+
+    bs.bootstrap = timed_bootstrap
+    requests, first = {}, None
+    try:
+        for kind, jit in (("warm-up", False), ("timed", "auto"), ("unbounded", "auto")):
+            if kind == "unbounded":
+                # what the plane bound costs the segment path: the bound
+                # lifted, the dropped planes encoded again by a warm-up
+                ex.plane_bound = False
+                bs.set_plane_budget(None)
+                t0 = sync()
+                ex.warm_bootstraps()
+                out["unbounded_warmup_s"] = sync() - t0
+            reset_counts(nk, ntt_mod)
+            calls0, replays0, n_keys0 = bs.calls, ex.replays, len(galois)
+            replayed0 = dict(ex.replayed_ntt)
+            evictions0, reencodes0 = bs.evictions, bs.reencodes
+            boot_s.clear()
+            torch.cuda.reset_peak_memory_stats()
+            server.jit = jit
+            t0 = sync()
+            ret = server.run()
+            request_s = sync() - t0
+            blobs = [server.getOutputCtxt(j) for j in range(server.prog.res_length)]
+            replayed = {k: ex.replayed_ntt[k] - replayed0[k] for k in replayed0}
+            r = requests[kind] = dict(
+                request_s=request_s, bootstrap_s=list(boot_s), bootstraps_total_s=sum(boot_s),
+                segments_and_rest_s=request_s - sum(boot_s), bootstraps=bs.calls - calls0,
+                graph_replays=ex.replays - replays0, eager_ntt_launches=dict(nk.LAUNCHES),
+                graph_ntt_launches=replayed,
+                ntt_launches={k: nk.LAUNCHES[k] + replayed[k] for k in replayed},
+                plain_ntt_calls=dict(ntt_mod.CALLS), keys_made=len(galois) - n_keys0,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                key_device_bytes=galois.device_bytes + conj_bytes,
+                plane_groups_dropped=bs.evictions - evictions0,
+                planes_reencoded=bs.reencodes - reencodes0, planes_held=bs.cached_planes())
+            t0 = sync()
+            logits = cnn_he.resnet_postprocess(client.decrypt_result(blobs[0]))
+            r["client_decrypt_s"] = sync() - t0
+            r["rms"] = float(np.sqrt(np.mean((logits - want) ** 2)))
+            r["logits"] = logits.tolist()
+            if first is None:
+                first = blobs
+            r["equals_warmup"] = blobs == first
+            log(f"[resnet native] {kind} request ({'segment' if jit else 'per-op'}) "
+                f"{request_s:.3f} s: {r['bootstraps']} native bootstraps "
+                f"{r['bootstraps_total_s']:.3f} s (each {min(boot_s):.3f}-{max(boot_s):.3f} s), "
+                f"the rest {r['segments_and_rest_s']:.3f} s, {r['graph_replays']} graph "
+                f"replays; signature plane groups dropped {r['plane_groups_dropped']}, planes "
+                f"encoded again {r['planes_reencoded']}; NTT calls {r['ntt_launches']} "
+                f"({r['eager_ntt_launches']} launched "
+                f"outside graphs), plain NTT calls {r['plain_ntt_calls']}; keys made "
+                f"{r['keys_made']}; peak {r['peak_bytes']} bytes; client decrypt "
+                f"{r['client_decrypt_s']:.3f} s, rms {r['rms']:.4e} (bar {RMS_BAR_RESNET}); "
+                f"output ciphertexts byte-equal to the warm-up's: {r['equals_warmup']}")
+            if ret is not None:
+                raise AssertionError("the server returned decrypted outputs")
+            if logits.shape != (10,) or not np.isfinite(logits).all():
+                raise AssertionError(f"bad native ResNet output {logits!r}")
+            if not r["rms"] <= RMS_BAR_RESNET:
+                raise AssertionError(f"native ResNet rms {r['rms']} > {RMS_BAR_RESNET}")
+            if r["bootstraps"] != expected["bootstraps"] or len(boot_s) != r["bootstraps"]:
+                raise AssertionError(f"{r['bootstraps']} native bootstraps ran, the program "
+                                     f"has {expected['bootstraps']}")
+            if (any(r["plain_ntt_calls"].values()) or min(r["ntt_launches"].values()) <= 0
+                    or r["keys_made"]):
+                raise AssertionError(f"the native ResNet request: {r}")
+            if not r["equals_warmup"]:
+                raise AssertionError(f"the {kind} request's output ciphertexts differ from "
+                                     "the warm-up's")
+            if kind == "unbounded" and (r["plane_groups_dropped"] or r["planes_reencoded"]):
+                raise AssertionError(f"planes dropped without a bound: {r}")
+    finally:
+        del bs.bootstrap
+        server.jit = "auto"
+        ex.plane_bound = True
+        shapes.stop()
+    out["requests"] = requests
+    out["request_s"] = requests["timed"]["request_s"]
+    out["peak_bytes"] = max([out["peak_load_bytes"]]
+                            + [r["peak_bytes"] for r in requests.values()])
+    check = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n15b", sorted(shapes.sizes),
+                                "ResNet native")
+    log(f"[resnet native] timed request {out['request_s']:.3f} s (bootstraps "
+        f"{requests['timed']['bootstraps_total_s']:.3f} s, the rest "
+        f"{requests['timed']['segments_and_rest_s']:.3f} s), without the plane bound "
+        f"{requests['unbounded']['request_s']:.3f} s (after a warm-up of "
+        f"{out['unbounded_warmup_s']:.3f} s; peak {requests['unbounded']['peak_bytes']} "
+        f"bytes), per-op (the warm-up) {requests['warm-up']['request_s']:.3f} s; segment "
+        f"== per-op byte for byte; peak {out['peak_bytes']} bytes")
+    del server, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(RESNET_TRACE)
+    return out, requests["timed"]["ntt_launches"], check
 
 
 def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
@@ -1965,77 +2318,15 @@ def basic_batch_mesh(np, torch, full, cases, args, outs, meta, none_median_s, nk
     return out
 
 
-def mesh_shards(torch, Scheme, params, ntt_mod, nk):
-    """The mesh's row-subset arithmetic on the card, in one process and
-    without a collective (parallel.mesh.shard_check): at tpu_n15's top
-    level, each rank's rows of a mul_ct key switch and of a two-tap rot-mac
-    group at mp = 2 and 4, assembled, must equal the unsharded accumulators
-    bit for bit; the NTT at every batch size the row subsets launched must
-    equal the plain NTT; and the device key bytes one rank holds at each mp
-    (Multivariate's 12 tpu_n14 keys, ResNet-20's 202 tpu_n15 keys). A check
-    of the kernels and tables on row subsets, not of the collectives."""
-    from dacapo_tpu_torch.parallel.mesh import shard_check
-    s = Scheme("tpu_n15", device="cuda")
-    s.generate_keys(rot_steps=(1, 2))
-    out = {}
-    shapes = NttShapes()
-    shapes.start()
-    try:
-        for mp in (2, 4):
-            t0 = time.perf_counter()
-            r = out[f"mp{mp}"] = shard_check(s, mp)
-            torch.cuda.synchronize()
-            r["seconds"] = time.perf_counter() - t0
-    finally:
-        shapes.stop()
-    del s
-    gc.collect()
-    torch.cuda.empty_cache()
-    keys = {}
-    for profile, n_keys in (("tpu_n14", 12), ("tpu_n15", 202)):
-        cfg = params.PROFILES[profile]
-        keys[profile] = {mp: max(len(range(r, cfg.num_all, mp)) for r in range(mp))
-                         * cfg.dnum * 2 * cfg.n * 4 * n_keys for mp in (1, 2, 4)}
-    out["key_bytes_a_rank"] = keys
-    out["ntt"] = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n15", sorted(shapes.sizes),
-                                     "mesh shards mp 2, 4")
-    log("[mesh] shard arithmetic at tpu_n15 nl=28: " + "; ".join(
-        f"mp {mp}: {out[f'mp{mp}']['mismatches']} mismatched elements, key rows "
-        f"{out[f'mp{mp}']['rows']}, {out[f'mp{mp}']['seconds']:.3f} s" for mp in (2, 4))
-        + f"; key bytes a rank by mp: {keys}")
-    bad = [mp for mp in (2, 4) if out[f"mp{mp}"]["mismatches"]]
-    if bad:
-        raise AssertionError(f"the sharded accumulators differ from the unsharded at mp {bad}")
-    return out
-
-
-def native_core(HEVMProgram, native):
+def native_core(native):
     """The native artifact core after the phases: built from the checkout's
-    source (or found built from it), every .hevm and .cst they read and
-    wrote went through it, and the committed
-    ResNet .hevm loads equal through it and the pure-Python reader (each
-    timed, median of 3)."""
-    path = os.path.join(RESNET_ART, "ResNet.hevm")
-    times = {}
-    progs = {}
-    for name, load in (("native", HEVMProgram.load), ("python", HEVMProgram._load_py)):
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            progs[name] = load(path)
-            ts.append(time.perf_counter() - t0)
-        times[name] = statistics.median(ts)
-    a, b = progs["native"], progs["python"]
-    equal = [(o.opcode, o.dst, o.lhs, o.rhs) for o in a.ops] == [
-        (o.opcode, o.dst, o.lhs, o.rhs) for o in b.ops] and a.res_dst == b.res_dst
-    out = dict(build=dict(native.BUILD_INFO), calls=dict(native.CALLS),
-               resnet_hevm_load_s=times, resnet_ops=len(a.ops), equal=equal)
+    source (or found built from it), and every .hevm and .cst the phases
+    read and wrote went through it (its calls counted). Its read time
+    against the pure-Python reader is scripts/hevm_read_timing.py's."""
+    out = dict(build=dict(native.BUILD_INFO), calls=dict(native.CALLS))
     log(f"[native core] built {native.BUILD_INFO['built']} in "
-        f"{native.BUILD_INFO['seconds']:.3f} s; calls {out['calls']}; ResNet.hevm "
-        f"({len(a.ops)} ops) load {times['native']:.4f} s native, {times['python']:.4f} s "
-        f"Python, equal {equal}")
-    if not equal or min(
-            out["calls"][k] for k in ("hevm_load", "hevm_save", "cst_load", "cst_save")) <= 0:
+        f"{native.BUILD_INFO['seconds']:.3f} s; calls {out['calls']}")
+    if min(out["calls"][k] for k in ("hevm_load", "hevm_save", "cst_load", "cst_save")) <= 0:
         raise AssertionError(f"the native core: {out}")
     return out
 
@@ -2172,7 +2463,6 @@ def main():
             log(f"[build] {line.strip()}")
 
     from dacapo_tpu_torch.vm import native as hevm_core
-    from dacapo_tpu_torch.vm.hevm import HEVMProgram
     t1 = time.perf_counter()
     hevm_core.build()
     log(f"[build] hevm_core.cpp: {time.perf_counter() - t1:.2f} s -> "
@@ -2192,6 +2482,7 @@ def main():
         t0 = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {seconds[name]:.1f} s")
         return out
 
     # the programs the MLP and native phases serve, compiled by the port, and
@@ -2217,18 +2508,21 @@ def main():
                                      params)
     by_path["scheme_tpu_n16"] = report["scheme_tpu_n16"]["launches"]
 
-    def native():
+    def native(kd):
         out = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
-        with tempfile.TemporaryDirectory(prefix="hevm_keys_n15b_") as kd:
-            out["tpu_n15b"], by_path["native_deep_tpu_n15b_request"], \
-                by_path["native_bootstrap_tpu_n15b"], kept = serve_native(
-                    np, torch, HEVM, nk, ntt_mod, params, kd, files)
-            out["tpu_n15b_budget"], by_path["native_deep_keystream_tpu_n15b_request"] = \
-                serve_native_budget(np, torch, nk, ntt_mod, files, kept)
-            del kept
+        out["tpu_n15b"], by_path["native_deep_tpu_n15b_request"], \
+            by_path["native_bootstrap_tpu_n15b"], kept = serve_native(
+                np, torch, HEVM, nk, ntt_mod, params, kd, files)
+        out["tpu_n15b_budget"], by_path["native_deep_keystream_tpu_n15b_request"] = \
+            serve_native_budget(np, torch, nk, ntt_mod, files, kept)
+        del kept
         return out
 
-    report["native"] = timed("native", native)
+    # one tpu_n15b keyset: the native phase generates it (the bootstrap's
+    # keys among them), the native ResNet phase, the last, adds ResNet's
+    # rotation keys
+    keys_n15b = tempfile.TemporaryDirectory(prefix="hevm_keys_n15b_")
+    report["native"] = timed("native", native, keys_n15b.name)
     report["basic"], by_path["basic_server_requests"], \
         by_path[f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request"] = timed(
             "basic", serve_basic, np, torch, HEVM, nk, ntt_mod,
@@ -2252,10 +2546,14 @@ def main():
         f"{BASIC_BATCH_ROW}_decode_tpu_n14": batch_kernel_checks(
             torch, params, ntt_mod, nk, "tpu_n14",
             basic_batch_out["streamed"]["decode_ntt_sizes"], f"{BASIC_BATCH_ROW} decode")})
-    report["mesh_shards"] = timed("mesh_shards", mesh_shards, torch, Scheme, params, ntt_mod, nk)
     report["profile"], by_path["profile_tpu_n14"] = timed(
         "profile", profile_ops, torch, nk, ntt_mod)
-    report["native_core"] = native_core(HEVMProgram, hevm_core)
+    report["resnet_native"], by_path["resnet_native_tpu_n15b_server_request"], \
+        report["ntt_batch"]["resnet_native_tpu_n15b"] = timed(
+            "resnet_native", serve_resnet_native, np, torch, HEVM, nk, ntt_mod, params,
+            keys_n15b.name, work.name)
+    keys_n15b.cleanup()
+    report["native_core"] = native_core(hevm_core)
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
 
     per_ct = {f"resnet_tpu_n15_batch{RESNET_BATCH}_request": RESNET_BATCH,
@@ -2268,7 +2566,7 @@ def main():
         n15b = {f"B={b}": results[mode][("tpu_n15b", b)] for b in (120, 240)}
         oracle = {f"B={b}": results[mode][("tpu_n15", b)] for b in (3, 28, 84)}
         n14 = {f"B={b}": results[mode][("tpu_n14", b)] for b in BASIC_TIMED_N14}
-        shape_checks = dict(report["ntt_batch"], mesh_shards_tpu_n15=report["mesh_shards"]["ntt"])
+        shape_checks = report["ntt_batch"]
         batch_shapes = {path: dict(largest_B=r["largest"], checked_B=r["checked"],
                                    max_abs_err=r["max_abs_err"][mode], **r[mode])
                         for path, r in shape_checks.items()}

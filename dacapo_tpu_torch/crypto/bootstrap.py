@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from .crt_lift import _col, crt_expand, single_crt_expand
+from .cuda import ntt_kernel
 from .modmath import add_mod, mul_mod
 
 # Headroom for the exact integer lift: polynomial COEFFICIENTS of the raw
@@ -107,6 +108,9 @@ class EmulatedBootstrapper:
         self.gen.manual_seed(int(np.random.SeedSequence(0xB007).generate_state(1)[0]))
         self._graphs = {}       # cache key -> graph record (the card only)
         self.replays = 0        # oracle graph replays, over all requests
+        # NTT calls the replayed graphs ran, over all requests (what each
+        # graph recorded at capture, ntt_kernel.RECORDED)
+        self.replayed_ntt = dict.fromkeys(ntt_kernel.RECORDED, 0)
         self.capture_s = 0.0    # seconds spent capturing oracle graphs
 
     def _plan(self, nl, scale, target_level):
@@ -227,11 +231,13 @@ class EmulatedBootstrapper:
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.gen)
+        ntt0 = dict(ntt_kernel.RECORDED)
         with torch.cuda.graph(graph, stream=stream):
             out = self._refresh(inp, *key[1:3])
         self.gen.set_state(state)
         self.capture_s += time.perf_counter() - t0
-        rec = self._graphs[key] = dict(graph=graph, inp=inp, out=out, keys=keys)
+        rec = self._graphs[key] = dict(graph=graph, inp=inp, out=out, keys=keys,
+                                       ntt={k: v - ntt0[k] for k, v in ntt_kernel.RECORDED.items()})
         return rec
 
     def bootstrap(self, data, nl, scale, target_level):
@@ -252,6 +258,8 @@ class EmulatedBootstrapper:
         rec["inp"].copy_(data[..., :nl, :])
         rec["graph"].replay()
         self.replays += 1
+        for k, v in rec["ntt"].items():
+            self.replayed_ntt[k] += v
         return rec["out"].clone(), (nl2, scale)
 
     bootstrap_batch = bootstrap

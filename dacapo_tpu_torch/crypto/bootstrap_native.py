@@ -36,14 +36,16 @@ the bootstrapper; the galois keys of the baby and giant steps and the
 conjugation key are generated on first use (crypto/keys.py).
 """
 
+import dataclasses
+import math
 from dataclasses import dataclass
+from fractions import Fraction
 
 import numpy as np
 import torch
 from numpy.polynomial import chebyshev as C
 
 from .crt_lift import pair_crt_expand
-from .params import to_dev
 
 
 @dataclass(frozen=True)
@@ -56,6 +58,84 @@ class BootstrapConfig:
     #   Each merged level costs 1 multiplicative depth and ~2*sqrt(2^radix)
     #   hoisted rotations; total levels = ceil(log2(slots)/radix). radix=5
     #   -> 3 levels at N=2^16, matching HEaaN-class FFT bootstrapping.
+
+
+# ModRaise's overflow I (|I + m/q0| <= K above) is, coefficient by
+# coefficient, round(c1 s / q0): for a secret of Hamming weight h, the sum of
+# h terms uniform in [-1/2, 1/2) (sigma = sqrt(h / 12), 4 at h = 192). Where
+# some coefficient of the N passes what EvalMod's polynomial maps to
+# sin(2 pi I) (`evalmod_reach`: K for degree 40 at K = 24, K + 1 for the
+# reference's K = 16, degree 36), StC spreads the error over every slot.
+# The reference's K = 16 suits h = 64 (a bootstrap fails with probability
+# 2^-34.2 at N = 2^15) but not h = 192 (tpu_n15b, tpu_n16): 0.31 a
+# bootstrap, and ResNet-20 on tpu_n15b decrypted to logits 0.0084 and 0.49
+# RMS off on an NVIDIA H100 80GB HBM3, 4 of its 18 bootstraps wrong.
+# sized_for_secret takes the least K whose failure probability a bootstrap,
+# `failure_probability`, is at most OVERFLOW_TARGET. The target is what depth
+# and precision allow on tpu_n15b: degree 40 is the most EvalMod evaluates at
+# degree 36's depth (41 to 64 take one level more), which reaches K = 26 at
+# most, and the bootstrap's error grows with K (the message is normalized by
+# 1/K before EvalMod): K = 24 takes ResNet-20 to 8.9e-4 RMS against its
+# 9.5152e-4 bar. A request of 18 bootstraps keeps a failure probability of
+# 3.7e-4 (h = 192, N = 2^15); 2^-30 a request would take K = 31 at degree 52,
+# one level more than the compiled program leaves the bootstrap.
+OVERFLOW_TARGET = 2.0 ** -15
+EVALMOD_TOL = 1e-7      # EvalMod's error in sin(2 pi I) past which a coefficient fails
+WIDE_DEGREE = 40        # the degree past K = 16: EvalMod's error at K = 24 near 1e-9
+
+
+def evalmod_reach(cfg):
+    """The largest integer B such that EvalMod's polynomial (the Chebyshev
+    fit of degree cfg.degree over [-K, K], then cfg.r double angles) stays
+    within EVALMOD_TOL of sin(2 pi I) at every integer |I| <= B, in
+    float64."""
+    f = lambda x: np.cos((2 * np.pi * cfg.K * x - np.pi / 2) / (2 ** cfg.r))
+    coeffs = C.chebinterpolate(f, cfg.degree)
+    reach = 0
+    while True:
+        y = C.chebval(np.array([reach + 1, -reach - 1]) / cfg.K, coeffs)
+        for _ in range(cfg.r):
+            y = 2 * y * y - 1
+        if not np.all(np.abs(y) <= EVALMOD_TOL):
+            return reach
+        reach += 1
+
+
+def overflow_tail(secret_h, bound):
+    """P(|I| > bound) for one coefficient of ModRaise's overflow: |S| >=
+    bound + 1/2 for S the sum of secret_h uniforms on [-1/2, 1/2), exactly,
+    from the Irwin-Hall distribution's CDF."""
+    n = secret_h
+    y = Fraction(n - 2 * bound - 1, 2)             # P(S >= a) = F_n(n/2 - a)
+    if y <= 0:
+        return 0.0
+    cdf = sum((-1) ** k * math.comb(n, k) * (y - k) ** n for k in range(int(y) + 1))
+    return float(2 * cdf / math.factorial(n))
+
+
+def failure_probability(cfg, secret_h, n):
+    """The probability, bounded by the union over the n coefficients, that
+    some coefficient's ModRaise overflow passes EvalMod's reach in one
+    bootstrap."""
+    return min(1.0, n * overflow_tail(secret_h, evalmod_reach(cfg)))
+
+
+def sized_for_secret(cfg, secret_h, n):
+    """`cfg` if its failure probability a bootstrap (N = n, Hamming weight
+    secret_h) is at most OVERFLOW_TARGET (the reference's K = 16 and degree
+    36 up to h = 101 at N = 2^15), else the least K past it, at degree
+    WIDE_DEGREE, that meets the target (K = 24 at h = 192). A dense secret
+    (secret_h 0) keeps `cfg`, as the reference does."""
+    if secret_h <= 0:
+        return cfg
+    for k in range(cfg.K, 4 * cfg.K + 1):
+        cand = cfg if k == cfg.K else dataclasses.replace(
+            cfg, K=k, degree=max(cfg.degree, WIDE_DEGREE))
+        if failure_probability(cand, secret_h, n) <= OVERFLOW_TARGET:
+            return cand
+    raise ValueError(f"no K up to {4 * cfg.K} at degree {WIDE_DEGREE} keeps the "
+                     f"bootstrap's failure probability under {OVERFLOW_TARGET} "
+                     f"at h = {secret_h}, N = {n}")
 
 
 # --------------------------------------------------------------------------
@@ -282,11 +362,25 @@ class NativeBootstrapper:
         self._cheb = None
         self._enc_cache = {}
         self.calls = 0          # bootstraps run (chip_smoke.py checks the count)
+        # the bound on the cached planes (set_plane_budget): the planes each
+        # input signature's bootstrap encoded first, by signature
+        self.plane_budget = None
+        self._groups = {}               # (nl, scale) -> [(cache dict, key, bytes)]
+        self._group_bytes = {}          # (nl, scale) -> its planes' bytes when last held
+        self._sequence, self._pos = [], 0
+        self._dropped = set()           # (cache id, key) of the planes dropped
+        self.evictions = 0      # signature groups dropped
+        self.reencodes = 0      # planes encoded again after their group was dropped
 
     # ------------------------------------------------------------ helpers
     def encode_vec(self, vec, scale, nl):
-        planes = self.s.encoder.encode(vec, float(scale), nl)
-        return self.ev.ntt(to_dev(planes, self.s.device), list(range(nl)))
+        """Encoder.encode's planes, NTT'd, their residues taken on the
+        device where the encoder's int64 branch applies
+        (Evaluator.encoded_residues): a load's warm-up encodes thousands of
+        diagonals."""
+        enc = self.s.encoder
+        planes = self.ev.encoded_residues(enc, enc._raw_coeffs(vec) * float(scale), range(nl))
+        return self.ev.ntt(planes, list(range(nl)))
 
     def encode_const(self, c, scale, nl):
         key = (complex(c), float(scale), nl)
@@ -500,6 +594,18 @@ class NativeBootstrapper:
             self._cts_last_cache[key] = pair
         return pair
 
+    def cached_planes(self):
+        """What the bootstrapper holds on the device besides keys: the
+        plaintext diagonals of every CtS/StC level it has applied
+        (SlotLinearTransform._pt, the last CtS level's pair once per input
+        normalizer, `_cts_last`) and the constants (encode_const): counts
+        and bytes. Encodes nothing."""
+        diags = [pt for t in self._levels() for pt in t._pt_cache.values()]
+        consts = list(self._enc_cache.values())
+        return dict(diagonals=len(diags), diagonal_bytes=sum(p.nbytes for p in diags),
+                    cts_last_normalizers=len(self._cts_last_cache) if self._cts else 0,
+                    constants=len(consts), constant_bytes=sum(p.nbytes for p in consts))
+
     def rotation_steps(self):
         """The nonzero rotation steps of every CtS/StC level (the galois
         keys a bootstrap uses, besides the conjugation key), sorted. Builds
@@ -514,7 +620,100 @@ class NativeBootstrapper:
     # smaller gap -> EvalMod's absolute error is amplified by q0'/delta'.
     GAP_BITS = 9
 
+    # ------------------------------------------------ the bound on planes
+    def set_plane_budget(self, nbytes, sequence=None):
+        """Bound the plaintext planes the bootstrapper keeps (diagonals and
+        constants, cached_planes) to `nbytes` (None: no bound). Once a
+        `sequence` is given (the request's signatures in order, repeating),
+        the planes a bootstrap encodes first belong to its input signature
+        (rows, scale): past the bound, whole signatures' planes are dropped
+        before a bootstrap of another signature runs, the one whose next
+        use in the sequence lies furthest ahead (Belady's rule, as the
+        executor plans its key arena); the running signature's always stay.
+        A dropped plane is encoded again at its next use under the same
+        cache key, so every output is unchanged (`reencodes` counts them).
+        With a sequence, the planes held outside any signature's group
+        (bootstraps run before one) are dropped; a bound below the planes
+        held drops groups now, by the same rule."""
+        if sequence is not None:
+            grouped = {(id(c), k) for g in self._groups.values() for c, k, _ in g}
+            for key, cache in self._plane_entries().items():
+                if key not in grouped:
+                    del cache[key[1]]
+                    self._dropped.add(key)
+            self._sequence = [(int(nl), float(sc)) for nl, sc in sequence]
+            self._pos = 0
+        self.plane_budget = nbytes
+        if nbytes is not None:
+            self._evict(nbytes)
+
+    def _levels(self):
+        """Every CtS/StC level built so far (the last CtS pair once per
+        input normalizer)."""
+        if self._cts is None:
+            return []
+        return (list(self._cts) + [t for pair in self._cts_last_cache.values() for t in pair]
+                + list(self._stc_first) + list(self._stc))
+
+    def _plane_entries(self):
+        """{(cache id, key): cache dict} of every plane held, the levels'
+        diagonals and the constants."""
+        out = {(id(t._pt_cache), k): t._pt_cache for t in self._levels() for k in t._pt_cache}
+        out.update({(id(self._enc_cache), k): self._enc_cache for k in self._enc_cache})
+        return out
+
+    def _next_use(self, sig):
+        """Bootstraps from the current one to sig's next in the sequence."""
+        seq = self._sequence
+        for k in range(len(seq)):
+            if seq[(self._pos + k) % len(seq)] == sig:
+                return k
+        return len(seq)
+
+    def _evict(self, limit):
+        """Drop whole signature groups, the furthest next use first, until
+        the planes held take at most `limit` bytes."""
+        held = sum(b for g in self._groups.values() for _, _, b in g)
+        while self._groups and held > limit:
+            victim = max(self._groups, key=self._next_use)
+            for cache, key, b in self._groups.pop(victim):
+                if cache.pop(key, None) is not None:
+                    self._dropped.add((id(cache), key))
+                held -= b
+            self.evictions += 1
+
+    def _make_room(self, sig):
+        """Drop other signatures' planes until this one's fit the bound: as
+        many bytes as its planes took when last held, for a signature not
+        held before the fewest any signature took."""
+        if sig not in self._groups:
+            need = self._group_bytes.get(sig, min(self._group_bytes.values(), default=0))
+            self._evict(self.plane_budget - need)
+
     def bootstrap(self, data, nl, scale, target_level):
+        """Bootstrap (_bootstrap below); once a sequence is planned the
+        planes it encodes are kept as its input signature's, under the
+        bound when there is one (set_plane_budget)."""
+        if not self._sequence:
+            return self._bootstrap(data, nl, scale, target_level)
+        sig = (int(nl), float(scale))
+        if sig in self._sequence:                        # where the request is
+            self._pos = (self._pos + self._next_use(sig)) % len(self._sequence)
+        if self.plane_budget is not None:
+            self._make_room(sig)
+        before = self._plane_entries()
+        out = self._bootstrap(data, nl, scale, target_level)
+        after = self._plane_entries()
+        new = [key for key in after if key not in before]
+        group = self._groups.setdefault(sig, [])
+        group.extend((after[key], key[1], after[key][key[1]].nbytes) for key in new)
+        self._group_bytes[sig] = sum(b for _, _, b in group)
+        self.reencodes += sum(key in self._dropped for key in new)
+        self._dropped.difference_update(new)
+        self._pos = (self._pos + 1) % len(self._sequence)
+        return out
+
+    def _bootstrap(self, data, nl, scale, target_level):
         """data: int32 [2, nl, N]; returns (data', (nl', scale')).
 
         `target_level` is in hevm levels (composite profiles expand it by

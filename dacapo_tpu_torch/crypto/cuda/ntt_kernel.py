@@ -33,6 +33,9 @@ MIN_LOGN, MAX_LOGN = 8, 16
 # it is not counted; a replay runs the graph's kernels without this wrapper
 # (they are counted on the device, by the profiler)
 LAUNCHES = {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
+# calls recorded into a CUDA graph under capture (no launch): the executor
+# keeps each graph's share, so a replay's NTT calls are known without a trace
+RECORDED = {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
 BUILD_INFO = {}          # seconds, nvcc output of the build in this process
 
 _lib = None
@@ -130,8 +133,7 @@ def ntt_cuda(x, rows, tables, inverse=False):
     if rc != 0:
         raise RuntimeError(
             f"CUDA NTT launch failed: {lib.dacapo_cuda_error_string(rc).decode()}")
-    if not capturing:
-        LAUNCHES["ntt_inv_cuda" if inverse else "ntt_fwd_cuda"] += 1
+    (RECORDED if capturing else LAUNCHES)["ntt_inv_cuda" if inverse else "ntt_fwd_cuda"] += 1
     return y
 
 
@@ -143,22 +145,29 @@ class TraceLossError(RuntimeError):
 _PASS_NAME = re.compile(r"ntt_pass<\s*\d+\s*,\s*(\w+)\s*,\s*(\w+)\s*>")
 
 
-def launches_in_profile(events):
-    """NTT calls of each mode that a torch.profiler trace saw run on the
-    device, graph replays included: `events` are the trace's
-    key_averages(). Each call runs one `ntt_pass<LOGN, PASS_B, INVERSE>`
-    kernel of each pass, so a mode's calls are its pass-A kernels; unequal
-    pass counts (a trace that lost records) raise TraceLossError. Reads a trace and adds
-    nothing to LAUNCHES."""
+def passes_in_profile(events):
+    """{mode name: (pass-A kernels, pass-B kernels)} that a torch.profiler
+    trace saw run on the device, graph replays included: `events` are the
+    trace's key_averages() rows. Reads a trace and adds nothing to
+    LAUNCHES."""
     passes = {}
     for e in events:
         m = _PASS_NAME.search(e.key)
         if m and str(e.device_type).endswith("CUDA"):
             key = (m.group(2) in ("true", "1"), m.group(1) in ("true", "1"))
             passes[key] = passes.get(key, 0) + e.count
+    return {name: (passes.get((inverse, False), 0), passes.get((inverse, True), 0))
+            for name, inverse in (("ntt_fwd_cuda", False), ("ntt_inv_cuda", True))}
+
+
+def launches_in_profile(events):
+    """NTT calls of each mode that a torch.profiler trace saw run on the
+    device (passes_in_profile). Each call runs one `ntt_pass<LOGN, PASS_B,
+    INVERSE>` kernel of each pass, so a mode's calls are its pass-A
+    kernels; unequal pass counts (a trace that lost records) raise
+    TraceLossError."""
     out = {}
-    for name, inverse in (("ntt_fwd_cuda", False), ("ntt_inv_cuda", True)):
-        a, b = passes.get((inverse, False), 0), passes.get((inverse, True), 0)
+    for name, (a, b) in passes_in_profile(events).items():
         if a != b:
             raise TraceLossError(f"{name}: the trace holds {a} pass-A and {b} pass-B kernels")
         out[name] = a

@@ -13,6 +13,10 @@ conjugate pair at ζ^{-5^j}. With k = 2r+1, m(ζ^k) = N·ifft(c·ψ_t)[r] where
 
 import numpy as np
 
+# Scaled coefficients below this round to int64 and reduce prime by prime;
+# larger ones take the float64 mantissa/exponent split (_rns_residues).
+INT64_BOUND = 2 ** 62
+
 
 class Encoder:
     def __init__(self, ctx):
@@ -84,7 +88,7 @@ class Encoder:
         lead = prod.shape[:-1]
         amax = np.abs(prod).max() if prod.size else 0.0
         out = np.empty(lead + (len(primes), self.n), dtype=np.uint32)
-        if amax < 2 ** 62:
+        if amax < INT64_BOUND:
             c = np.round(prod).astype(np.int64)
             for i, q in enumerate(primes):
                 out[..., i, :] = np.mod(c, q)
@@ -122,6 +126,11 @@ class Encoder:
         (lib/Runtime/SEAL_HEVM.cpp:242-267); CNN plans have thousands, so the
         batched path is what makes load-time preprocessing seconds-scale.
         """
+        return self._rns_residues(self.scaled_coeffs_batch(values_list, scales), nl,
+                                  primes=primes)
+
+    def scaled_coeffs_batch(self, values_list, scales) -> np.ndarray:
+        """The float64 [B, N] scaled coefficients encode_batch reduces."""
         b = len(values_list)
         full = np.empty((b, self.n_slots), dtype=np.complex128)
         ar = np.arange(self.n_slots)
@@ -133,8 +142,7 @@ class Encoder:
         spec[:, self.conj_bins] += np.conj(full)
         d = np.fft.fft(spec, axis=1) / self.n
         coeffs = np.real(d * np.conj(self.twist))
-        prod = coeffs * np.asarray(scales, dtype=np.float64)[:, None]
-        return self._rns_residues(prod, nl, primes=primes)
+        return coeffs * np.asarray(scales, dtype=np.float64)[:, None]
 
     # ------------------------------------------------- compact (device) form
     def encode_compact_batch(self, values_list, scales) -> np.ndarray:

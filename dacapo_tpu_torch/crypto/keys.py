@@ -230,14 +230,6 @@ class KeySet:
     #                                  the rows g with g % mp == rank
 
 
-def _residues(coeffs: np.ndarray, primes) -> np.ndarray:
-    """Signed int64 coeffs -> uint32 RNS planes [len(primes), N]."""
-    out = np.empty((len(primes), coeffs.shape[-1]), dtype=np.uint32)
-    for i, q in enumerate(primes):
-        out[i] = np.mod(coeffs, q).astype(np.uint32)
-    return out
-
-
 class KeyGenerator:
     def __init__(self, ctx, evaluator, seed=None):
         self.ctx = ctx
@@ -265,8 +257,7 @@ class KeyGenerator:
         return to_dev(u.astype(np.uint32), self.ctx.device)
 
     def _ntt_planes(self, coeffs: np.ndarray, rows):
-        planes = _residues(coeffs, [self.ctx.primes[r] for r in rows])
-        return self.ev.ntt(to_dev(planes, self.ctx.device), rows)
+        return self.ev.ntt(self.ev.residues(coeffs, rows), rows)
 
     # ------------------------------------------------------------- keygen
     def generate(self, rot_steps=()) -> KeySet:

@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 from .cuda.ntt_kernel import ntt_cuda
+from .encoding import INT64_BOUND
 from .modmath import add_mod, sub_mod, neg_mod, mul_mod, host_shoup
 from .ntt import ntt_fwd, ntt_inv
 from .params import to_dev
@@ -124,6 +125,26 @@ class Evaluator:
             q = self.ctx.host_tables["q"][np.asarray(key[1], dtype=np.int64)]
             t = self._tabs[key] = to_dev(q[:, None], self.device)
         return t
+
+    def residues(self, coeffs, rows):
+        """int32 [..., len(rows), N] residues of integer coefficients (numpy
+        int64 [..., N]) mod the rows' primes, taken on the device: torch's
+        remainder by a positive modulus gives the integers np.mod does (the
+        host encoder's and key generator's). Keys and encodes at load use
+        it: the host's per-prime np.mod was most of their time."""
+        c = torch.from_numpy(np.ascontiguousarray(coeffs, dtype=np.int64)).to(self.device)
+        return (c.unsqueeze(-2) % self._q(rows).to(torch.int64)).to(torch.int32)
+
+    def encoded_residues(self, encoder, prod, rows):
+        """int32 [..., len(rows), N] residues of an encode's float64 scaled
+        coefficients mod the rows' primes, the integers the encoder's
+        _rns_residues gives: rounded and reduced on the device (residues)
+        where every one is below INT64_BOUND, its int64 branch; else by the
+        encoder on the host."""
+        if prod.size == 0 or np.abs(prod).max() < INT64_BOUND:
+            return self.residues(np.round(prod).astype(np.int64), rows)
+        return to_dev(encoder._rns_residues(prod, None, primes=[self.ctx.primes[r] for r in rows]),
+                      self.device)
 
     def _rows(self, rows):
         """Row-index tensor of the NTT: int32 (kernel) or int64 (plain)."""

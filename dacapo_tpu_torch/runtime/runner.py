@@ -13,7 +13,7 @@ block, in three modes (the reference's initFullVM/initClientVM/initServerVM):
   builds no bootstrapper.
 * "server": public and evaluation keys only, no secret key: a pregenerated
   keyset is required (a full HEVM's load makes and persists the program's
-  galois keys). `setCtxt` receives the arguments, `run` evaluates and
+  galois keys; its make_keys makes them without loading the program). `setCtxt` receives the arguments, `run` evaluates and
   returns None, `getOutputCtxt` ships each result. `load` refuses, before
   any key generation or capture, a program it cannot serve without the
   secret: one that bootstraps with the oracle (it decrypts), or one whose
@@ -85,7 +85,7 @@ import numpy as np
 import torch
 
 from ..crypto import keys as keymod
-from ..crypto.bootstrap_native import BootstrapConfig
+from ..crypto.bootstrap_native import BootstrapConfig, sized_for_secret
 from ..crypto.params import PROFILES, to_dev, to_host
 from ..crypto.scheme import Ciphertext, Scheme
 from ..ir.serialize import read_cst
@@ -192,7 +192,10 @@ class HEVM:
     def _native_bootstrapper(self):
         """The scheme's native bootstrapper, built once: more slots take a
         bigger butterfly radix (fewer CtS/StC levels, more rotations per
-        level), the reference's rule (runtime/runner.py:75-82)."""
+        level), the reference's rule (runtime/runner.py:75-82); a sparse
+        secret of Hamming weight past 101 (at N = 2^15) takes a wider
+        ModRaise bound K and degree 40 (bootstrap_native.sized_for_secret:
+        K = 24 at h = 192, where the reference keeps K = 16)."""
         s = self.scheme
         if s._native_bs is None:
             cfg = s.ctx.config
@@ -206,7 +209,8 @@ class HEVM:
                     "key the native bootstrap needs, and a server makes no keys: load "
                     "the program on a full HEVM first")
             radix = 7 if cfg.n_slots >= (1 << 14) else 5
-            s.enable_native_bootstrap(BootstrapConfig(radix=radix))
+            s.enable_native_bootstrap(sized_for_secret(BootstrapConfig(radix=radix),
+                                                       cfg.secret_h, cfg.n))
         return s._native_bs
 
     def _check_server_keys(self):
@@ -303,6 +307,27 @@ class HEVM:
             lap()
             parts.append("capture")
         self.load_seconds = dict(zip(parts, np.diff(laps).tolist()))
+
+    def make_keys(self, hevm_path):
+        """Full mode: make the galois keys a program needs without loading
+        it (no constants, no plaintexts, no graphs): its rotation offsets,
+        in the order the executor asks for them, then, when it bootstraps
+        natively, the bootstrap's rotation steps (the conjugation key is
+        made with the bootstrapper). Nothing is written: a server of the
+        program needs the keyset's server half after this
+        (save_keyset(parts=("public", "eval"))). Returns the number of
+        galois keys made."""
+        if self.mode != "full":
+            raise RuntimeError(f"only a full VM makes keys; this VM is {self.mode!r}")
+        prog = HEVMProgram.load(hevm_path)
+        s = self.scheme
+        before = len(s.keys.galois)
+        s.ensure_galois([o for o in prog.rotation_offsets() if o != 0])
+        if any(op.opcode == OP_BOOTSTRAP for op in prog.ops) and (
+                s.ctx.config.native_bootstrap
+                or os.environ.get("DACAPO_TPU_BOOT", "") == "native"):
+            s.ensure_galois(self._native_bootstrapper().rotation_steps())
+        return len(s.keys.galois) - before
 
     def precompile_batch(self, batch, mesh=None):
         """Capture, on the card, the graphs of the batch path for `batch`

@@ -101,6 +101,15 @@ window); here the plaintext pool is on the device before the first
 request, and the key copies in flight are bounded by the arena's slots:
 stream order makes a copy wait for the windows that read its slot.
 
+The native bootstrap's plaintext diagonals and constants are the
+bootstrapper's own (crypto/bootstrap_native.py), encoded once per input
+signature; under a memory limit they hold at most what the galois keys and
+the plaintexts leave of their budgets, less the plaintext LRU's share on the
+request's path (`path_budgets`: its whole budget per op, the eager windows'
+plaintexts on the segment path), planned over the request's bootstrap order
+(`_plan_bootstrap_planes`, `_use_path`), and a dropped plane is encoded
+again at its next use.
+
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
 semantics in addcc/addcp (SEAL_HEVM.cpp:297-310).
@@ -119,6 +128,7 @@ import torch
 
 from ..crypto.bootstrap import Bootstrapper, EmulatedBootstrapper
 from ..crypto.bootstrap_native import NativeBootstrapper
+from ..crypto.cuda import ntt_kernel
 from ..crypto.ops import RowShard
 from ..crypto.params import to_dev
 from ..crypto.scheme import Ciphertext
@@ -225,29 +235,21 @@ class HEVMExecutor:
         """scheme: crypto.Scheme with keys; constants: list of f64 arrays (.cst);
         host_rng: the oracle draws its randomness from the key generator's
         numpy RNG (crypto/bootstrap.py) instead of on the device."""
-        self.s = scheme
-        self.ev = scheme.ev
-        self.rr = scheme.ctx.config.rescale_rows   # RNS rows per hevm level
-        self.prog = program
-        self.constants = constants
-        # SSA-expand the register stream, then fuse the rot-mac banks
-        self.ops, self.num_regs, self.res_dst = ssa_expand(program)
-        self.ops, self._fused_pt_regs, self.num_regs = build_fuse_plan(
-            self.ops, self.num_regs, self.res_dst)
+        self._init_plan(scheme, program, constants)
         self.plains = [None] * program.num_ptxt      # device planes, or pool ids
-        self.plain_meta = [None] * program.num_ptxt  # (nl, scale)
-        self._pt_cid = [None] * program.num_ptxt     # register -> dedup id
         self._pt_rows = {}                           # cid -> decode row list
         self._pt_pool = None                         # int32 [cids, 2, N] (streaming)
         self._pt_dev = OrderedDict()                 # cid -> decoded planes (LRU)
         self._pt_dev_bytes = 0
         self._pt_groups = {}                         # window index -> decode groups
         self._pt_budget = None
+        self._lru_budget = None  # the LRU's bound on this path (None: _pt_budget)
+        self._path_budgets = None                    # _plan_bootstrap_planes
+        self.plane_bound = True  # False: no bound on the native bootstrap's planes
         self._streaming = False
         self.plain_bytes = self.pool_bytes = 0
         self._uk_cache = {}
         self._last_outputs = None
-        self._seg_plan = None
         self._captured = None   # (what the graphs were captured for, {wi: graph})
         self._captured_batch = None   # the same for one batch size
         self._mesh = None       # the mesh of the batch path, once use_mesh ran
@@ -260,7 +262,11 @@ class HEVMExecutor:
         self._segprof = False
         self.seg_profile = None
         self.capture_stats = None
+        self.bootstrap_stats = None     # warm_bootstraps: signatures and planes
         self.replays = 0        # graph replays, over all requests
+        # NTT calls the replayed graphs ran, over all requests (what each
+        # graph recorded at capture, ntt_kernel.RECORDED)
+        self.replayed_ntt = dict.fromkeys(ntt_kernel.RECORDED, 0)
         self.debug = False      # per-op (nl, scale) trace (setDebug)
         # the scheme's native bootstrapper once enable_native_bootstrap ran,
         # else the oracle
@@ -278,6 +284,32 @@ class HEVMExecutor:
         self.key_bytes = (self.n_keys + native) * scheme.galois_key_bytes()
         self._set_memory_budgets()
         self._prepare_keys()
+
+    def _init_plan(self, scheme, program, constants):
+        """What the metadata walk reads: the fused op stream and the
+        plaintexts' (nl, scale) slots."""
+        self.s = scheme
+        self.ev = scheme.ev
+        self.rr = scheme.ctx.config.rescale_rows   # RNS rows per hevm level
+        self.prog = program
+        self.constants = constants
+        # SSA-expand the register stream, then fuse the rot-mac banks
+        self.ops, self.num_regs, self.res_dst = ssa_expand(program)
+        self.ops, self._fused_pt_regs, self.num_regs = build_fuse_plan(
+            self.ops, self.num_regs, self.res_dst)
+        self.plain_meta = [None] * program.num_ptxt  # (nl, scale)
+        self._pt_cid = [None] * program.num_ptxt     # register -> dedup id
+        self._seg_plan = None
+
+    @classmethod
+    def plan_only(cls, scheme, program, constants):
+        """An executor of `program` that makes no key, builds no
+        bootstrapper and holds nothing on the device: its metadata walk
+        (_boot_sequence, _plaintext_plan, _arg_meta) on a scheme without
+        keys (scripts/native_resnet_plan.py)."""
+        ex = cls.__new__(cls)
+        ex._init_plan(scheme, program, constants)
+        return ex
 
     def _hbm_limit(self):
         """Device bytes the budgets are fractions of (reference :71-87):
@@ -316,31 +348,103 @@ class HEVMExecutor:
     def _prepare_keys(self):
         self.s.ensure_galois([o for o in self.prog.rotation_offsets() if o != 0])
 
-    def _boot_signatures(self):
-        """The distinct (input rows, scale, target level) of the program's
+    def _boot_sequence(self):
+        """(input rows, scale, target level) of each of the program's
         bootstraps, in program order, by the metadata walk from the
         compiled arguments."""
         meta = dict(enumerate(self._arg_meta()))
-        seen = {}
+        seq = []
         for op in self.ops:
             if op.opcode == OP_BOOTSTRAP:
-                seen.setdefault(meta[op.lhs] + (op.rhs,), None)
+                seq.append(meta[op.lhs] + (op.rhs,))
             self._meta_step(op, meta)
-        return list(seen)
+        return seq
+
+    def _boot_signatures(self):
+        """The distinct bootstrap signatures of _boot_sequence, in order."""
+        return list(dict.fromkeys(self._boot_sequence()))
+
+    def _plan_bootstrap_planes(self, cid_info, cid_qp):
+        """Under a memory limit (_hbm_limit), bound the native
+        bootstrapper's cached diagonals and constants, planned over the
+        request's bootstrap signatures (NativeBootstrapper.set_plane_budget),
+        path by path (path_budgets, _use_path). Each distinct input scale
+        encodes its own CoeffToSlot planes: ResNet-20 on tpu_n15b has 7 such
+        signatures, 37 GB of planes unbounded."""
+        bs = self.bootstrapper
+        limit = self._hbm_limit()
+        if not isinstance(bs, NativeBootstrapper) or limit is None:
+            return
+        self._path_budgets = self.path_budgets(
+            limit, self.key_bytes, self.plain_bytes + self.pool_bytes, self._streaming,
+            self.eager_plain_bytes(cid_info, cid_qp))
+        bs.set_plane_budget(self._path_budgets["segment"][1],
+                            [(nl, sc) for nl, sc, _ in self._boot_sequence()])
+
+    @classmethod
+    def path_budgets(cls, limit, key_bytes, plaintext_bytes, streaming, eager_bytes):
+        """{path: (plaintext LRU bytes, native bootstrap plane bytes)} for
+        the per-op and segment paths under a memory limit: the planes get
+        what the galois keys and the plaintexts (resident planes or the
+        compact pool) leave of their two budgets ((KEY_BUDGET_FRAC +
+        PTXT_BUDGET_FRAC) of the limit; none when the keys take it all, and
+        then only the running signature's stay), less what the plaintext
+        LRU may hold on the path when the plaintexts stream: its whole
+        budget per op, where every plaintext passes through it, and on the
+        segment path `eager_bytes`, the plaintexts of the eager windows
+        (the graphs decode theirs)."""
+        pt_budget = int(cls.PTXT_BUDGET_FRAC * limit)
+        free = (int((cls.KEY_BUDGET_FRAC + cls.PTXT_BUDGET_FRAC) * limit) - key_bytes
+                - plaintext_bytes)
+        lru = (dict(per_op=pt_budget, segment=min(pt_budget, eager_bytes)) if streaming
+               else dict(per_op=0, segment=0))
+        return {path: (b, max(free - b, 0)) for path, b in lru.items()}
+
+    def eager_plain_bytes(self, cid_info, cid_qp):
+        """Device bytes of the decoded planes of every plaintext that the
+        segment plan's eager windows (below SEGMENT_MIN_OPS ops) read,
+        through the plaintext LRU when the plaintexts stream
+        (_plaintext_plan's cid_info and cid_qp)."""
+        cids = {self._pt_cid[r] for info in self._segment_plan()
+                if info["kind"] == "seg" and not self._graph_window(info)
+                for r in info["plain_regs"]}
+        return self.resident_plain_bytes([cid_info[c] for c in cids],
+                                         [cid_qp[c] for c in cids])
+
+    def _use_path(self, path):
+        """Before a request on `path` ("per_op" or "segment"): the
+        plaintext LRU's bound and the native bootstrapper's plane bound of
+        the path (_plan_bootstrap_planes; `plane_bound` False lifts the
+        latter); a lower bound drops what passes it now."""
+        if self._path_budgets is None:
+            return
+        self._lru_budget, planes = self._path_budgets[path]
+        self._trim_lru()
+        self.bootstrapper.set_plane_budget(planes if self.plane_bound else None)
 
     def warm_bootstraps(self):
         """Run each distinct native bootstrap of the program once over a
         zero ciphertext: its galois keys, conjugation key and plaintext
         diagonals are made now. HEVM.load does this on the card, after
         preprocess; the CPU keeps the JAX package's lazy order.
+        `bootstrap_stats` then holds the signatures run and what the
+        bootstrapper holds after each (NativeBootstrapper.cached_planes).
         Returns the number run."""
-        if not isinstance(self.bootstrapper, NativeBootstrapper):
+        bs = self.bootstrapper
+        if not isinstance(bs, NativeBootstrapper):
             return 0
         sigs = self._boot_signatures()
+        after = []
         for nl, sc, target in sigs:
             zero = torch.zeros((2, nl, self.s.ctx.n), dtype=torch.int32,
                                device=self.s.device)
-            self.bootstrapper.bootstrap(zero, nl, sc, target)
+            bs.bootstrap(zero, nl, sc, target)
+            after.append(bs.cached_planes())
+        self.bootstrap_stats = dict(signatures=[list(sig) for sig in sigs],
+                                    planes_after=after,
+                                    galois_keys=len(self.s.keys.galois),
+                                    plane_budget=bs.plane_budget, evictions=bs.evictions,
+                                    reencodes=bs.reencodes)
         return len(sigs)
 
     def capture_oracle(self, batch=None):
@@ -373,7 +477,46 @@ class HEVMExecutor:
         enc = self.s.encoder
         ctx = self.s.ctx
         dev = self.s.device
-        alpha = ctx.config.alpha
+        cid_info, cid_regs, cid_qp = self._plaintext_plan()
+        nq, alpha = ctx.config.num_q, ctx.config.alpha
+        sp_rows = [nq + i for i in range(alpha)]
+        need = self.resident_plain_bytes(cid_info, cid_qp)
+        self._streaming = self._pt_budget is not None and need > self._pt_budget
+        self._pt_pool, self._pt_rows, self._pt_groups = None, {}, {}
+        self._pt_dev, self._pt_dev_bytes = OrderedDict(), 0
+        self.plain_bytes = self.pool_bytes = 0
+        self.n_plains = len(cid_info)
+        if self._streaming:
+            # the compact pool, 2 rows of N words per unique payload, filled
+            # chunk by chunk on the device
+            pool = torch.empty((len(cid_info), 2, ctx.n), dtype=torch.int32, device=dev)
+            for i in range(0, len(cid_info), self.PT_ENCODE_BATCH):
+                chunk = cid_info[i: i + self.PT_ENCODE_BATCH]
+                pool[i: i + len(chunk)] = to_dev(enc.encode_compact_batch(
+                    [c[0] for c in chunk], [c[2] for c in chunk]), dev)
+            self._pt_pool, self.pool_bytes = pool, pool.nbytes
+            for cid, (_, nl, _) in enumerate(cid_info):
+                self._pt_rows[cid] = list(range(nl)) + (sp_rows if cid_qp[cid] else [])
+                for dst in cid_regs[cid]:
+                    self.plains[dst] = cid          # a pool id: decoded at use
+            held = (f"streaming: compact pool {self.pool_bytes} bytes (resident "
+                    f"planes {need} bytes > budget {self._pt_budget})")
+        else:
+            self._preencode(cid_info, cid_regs, cid_qp, sp_rows)
+            held = f"{self.plain_bytes} bytes resident"
+        print(f"[hevm] {self.n_plains} unique plaintexts of "
+              f"{sum(1 for o in self.prog.ops if o.opcode == OP_ENCODE)} "
+              f"encodes: {held}; {self.n_keys} galois keys: {self.key_bytes} bytes",
+              file=sys.stderr, flush=True)
+        self._plan_bootstrap_planes(cid_info, cid_qp)
+
+    def _plaintext_plan(self):
+        """The host half of preprocess, which needs no key and no device:
+        the scale steering solution, each encode's (nl, scale) in
+        `plain_meta` (what the metadata walk reads) and the payload-identical
+        dedup. Returns (cid -> (data, nl, scale), cid -> [dst regs],
+        cid -> fed to a fused rot-mac bank: QP rows)."""
+        ctx = self.s.ctx
         st = steer_scales(self.prog, [int(q) for q in ctx.q_primes], self.rr,
                           ctx.config.prime_bits)
         nq = ctx.config.num_q
@@ -409,64 +552,38 @@ class HEVMExecutor:
             cid_regs[cid].append(op.dst)
             self._pt_cid[op.dst] = cid
             self.plain_meta[op.dst] = (nl, sc)
-
         # plaintexts feeding fused rot-mac banks need the extended Q^{(nl)}P
         # basis (lazy-ModDown masks): extra `alpha` special-prime rows
         cid_qp = [any(r in self._fused_pt_regs for r in regs) for regs in cid_regs]
-        sp_rows = [nq + i for i in range(alpha)]
-        need = sum((nl + (alpha if qp else 0)) * ctx.n * 4
+        return cid_info, cid_regs, cid_qp
+
+    def resident_plain_bytes(self, cid_info, cid_qp):
+        """Device bytes of the plaintexts kept resident as NTT planes (what
+        preprocess holds against the plaintext budget)."""
+        ctx = self.s.ctx
+        return sum((nl + (ctx.config.alpha if qp else 0)) * ctx.n * 4
                    for (_, nl, _), qp in zip(cid_info, cid_qp))
-        self._streaming = self._pt_budget is not None and need > self._pt_budget
-        self._pt_pool, self._pt_rows, self._pt_groups = None, {}, {}
-        self._pt_dev, self._pt_dev_bytes = OrderedDict(), 0
-        self.plain_bytes = self.pool_bytes = 0
-        self.n_plains = len(cid_info)
-        if self._streaming:
-            # the compact pool, 2 rows of N words per unique payload, filled
-            # chunk by chunk on the device
-            pool = torch.empty((len(cid_info), 2, ctx.n), dtype=torch.int32, device=dev)
-            for i in range(0, len(cid_info), self.PT_ENCODE_BATCH):
-                chunk = cid_info[i: i + self.PT_ENCODE_BATCH]
-                pool[i: i + len(chunk)] = to_dev(enc.encode_compact_batch(
-                    [c[0] for c in chunk], [c[2] for c in chunk]), dev)
-            self._pt_pool, self.pool_bytes = pool, pool.nbytes
-            for cid, (_, nl, _) in enumerate(cid_info):
-                self._pt_rows[cid] = list(range(nl)) + (sp_rows if cid_qp[cid] else [])
-                for dst in cid_regs[cid]:
-                    self.plains[dst] = cid          # a pool id: decoded at use
-            held = (f"streaming: compact pool {self.pool_bytes} bytes (resident "
-                    f"planes {need} bytes > budget {self._pt_budget})")
-        else:
-            self._preencode(cid_info, cid_regs, cid_qp, sp_rows)
-            held = f"{self.plain_bytes} bytes resident"
-        print(f"[hevm] {self.n_plains} unique plaintexts of "
-              f"{sum(1 for o in self.prog.ops if o.opcode == OP_ENCODE)} "
-              f"encodes: {held}; {self.n_keys} galois keys: {self.key_bytes} bytes",
-              file=sys.stderr, flush=True)
 
     def _preencode(self, cid_info, cid_regs, cid_qp, sp_rows):
         """The resident planes: host-encode the unique payloads grouped by
         (nl, qp-extended), one vectorized FFT per batch, then one
         prime-major NTT per batch."""
-        ctx = self.s.ctx
         by_grp = {}
         for cid, (_, nl, _) in enumerate(cid_info):
             by_grp.setdefault((nl, cid_qp[cid]), []).append(cid)
         for (nl, qp), cids in by_grp.items():
             rows_list = list(range(nl)) + (sp_rows if qp else [])
-            primes = [ctx.primes[r] for r in rows_list] if qp else None
             nrows = len(rows_list)
             i = 0
             while i < len(cids):
                 bsz = next(b for b in self.NTT_BATCH if b <= len(cids) - i)
                 chunk = cids[i: i + bsz]
-                blk = self.s.encoder.encode_batch(
-                    [cid_info[c][0] for c in chunk], [cid_info[c][2] for c in chunk], nl,
-                    primes=primes)                                   # [bsz, nrows, N]
-                flat = np.ascontiguousarray(blk.transpose(1, 0, 2)).reshape(
-                    bsz * nrows, -1)
+                prod = self.s.encoder.scaled_coeffs_batch(
+                    [cid_info[c][0] for c in chunk], [cid_info[c][2] for c in chunk])
+                blk = self.ev.encoded_residues(self.s.encoder, prod, rows_list)  # [bsz, nrows, N]
+                flat = blk.transpose(0, 1).reshape(bsz * nrows, -1).contiguous()
                 rows = [r for r in rows_list for _ in range(bsz)]
-                out = self.ev.ntt(to_dev(flat, self.s.device), rows)
+                out = self.ev.ntt(flat, rows)
                 out = out.reshape(nrows, bsz, -1).transpose(0, 1)
                 for k, c in enumerate(chunk):
                     planes = out[k].contiguous()
@@ -480,7 +597,11 @@ class HEVMExecutor:
         over the budget (a single entry stays, however large)."""
         self._pt_dev[cid] = planes
         self._pt_dev_bytes += planes.nbytes
-        while self._pt_dev_bytes > self._pt_budget and len(self._pt_dev) > 1:
+        self._trim_lru()
+
+    def _trim_lru(self):
+        limit = self._pt_budget if self._lru_budget is None else self._lru_budget
+        while self._pt_dev_bytes > limit and len(self._pt_dev) > 1:
             _, old = self._pt_dev.popitem(last=False)
             self._pt_dev_bytes -= old.nbytes
 
@@ -1069,6 +1190,8 @@ class HEVMExecutor:
             windows=len(plan), graphs=len(graphs),
             **{k: sum(g[k] for g in graphs.values())
                for k in ("warmup_s", "capture_s", "collectives")},
+            ntt_in_graphs={k: sum(g["ntt"][k] for g in graphs.values())
+                           for k in ntt_kernel.RECORDED},
             key_slots=0 if arena is None else len(arena["held"]),
             key_arena_bytes=0 if arena is None else arena["data"].nbytes,
             key_copies_planned=0 if arena is None else arena["copies"],
@@ -1143,6 +1266,7 @@ class HEVMExecutor:
         graph = torch.cuda.CUDAGraph()       # instantiated as the capture ends
         shard = self.ev.shard
         gathers = shard.gathers if shard is not None else 0
+        ntt0 = dict(ntt_kernel.RECORDED)
         # over a mesh the graph records NCCL all-gathers, whose process
         # group's watchdog thread queries CUDA events while this thread
         # captures: only this thread's calls must be capture-safe
@@ -1151,7 +1275,8 @@ class HEVMExecutor:
             outs = body()
         t2 = time.perf_counter()
         return dict(graph=graph, ins=ins, outs=outs, warmup_s=t1 - t0, capture_s=t2 - t1,
-                    collectives=(shard.gathers - gathers) if shard is not None else 0)
+                    collectives=(shard.gathers - gathers) if shard is not None else 0,
+                    ntt={k: v - ntt0[k] for k, v in ntt_kernel.RECORDED.items()})
 
     def _run_segmented(self, arg_cts, batch=None, boot=None):
         """Replay walk: per window, the bootstrap (boot: the device oracle
@@ -1165,6 +1290,7 @@ class HEVMExecutor:
         graph's outputs. batch=B: every register holds B ciphertexts, and
         the batch graphs replay; boot(data, nl, scale, target) -> (data,
         (nl2, scale)): a boot window's refresh, by default `_bootstrap`."""
+        self._use_path("segment")
         plan = self._segment_plan()
         graphs = self._graphs([(nl, sc) for _, nl, sc in arg_cts], batch)
         arena = self._key_arena()
@@ -1198,6 +1324,8 @@ class HEVMExecutor:
                 rec["graph"].replay()
                 self.replays += 1
                 self.mesh_collectives += rec["collectives"]
+                for k, v in rec["ntt"].items():
+                    self.replayed_ntt[k] += v
                 ciphers.update(zip(info["outs"], rec["outs"]))
                 for op in info["ops"]:
                     self._meta_step(op, meta)
@@ -1345,6 +1473,7 @@ class HEVMExecutor:
         self._mesh = mesh
 
     def _run_trace(self, arg_cts):
+        self._use_path("per_op")
         ciphers, meta = {}, {}
         for i, (data, nl, scale) in enumerate(arg_cts):
             ciphers[i] = data

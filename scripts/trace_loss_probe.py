@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """How often a torch.profiler trace of one request drops NTT kernel records,
-on the card: Multivariate (tpu_n14, pars/40, the basic list's row) at B=8 on
-a resident HEVM and on one under a 64 MiB plan (plaintexts streamed, keys in
-the key arena), each batch request profiled N times back to back, as
-chip_smoke.py's profile_request does, then N times each after an empty
-profiler session.
+and where, on the card: Multivariate (tpu_n14, pars/40, the basic list's
+row) at B=8 on a resident HEVM and on one under a 64 MiB plan (plaintexts
+streamed, keys in the key arena), each batch request profiled N times back
+to back as chip_smoke.py's profile_request does (device and host
+activities), in three variants: plain; after an empty profiler session
+(drained); and warmed, one small kernel run and synchronized inside the
+profiled window before the request, so that a record lost as tracing
+starts is that kernel's.
 
     python3 scripts/trace_loss_probe.py [N]      # default N = 20
 
 Prints one line per VM and variant: traces whose forward or inverse NTT
-passes were seen unequally often (nk.TraceLossError), and the NTT calls each
-trace held. Needs a CUDA card; works in a temporary directory.
+passes were seen unequally often (nk.TraceLossError), the NTT calls each
+trace held, and for each lossy trace where the loss sits: the graph launch
+(by its CUPTI correlation id, in launch order) whose pass counts differ and
+the first three device kernels of the trace. Needs a CUDA card; works in a
+temporary directory.
 """
 
 import os
@@ -63,24 +69,57 @@ def main():
         with profile(activities=[ProfilerActivity.CUDA]):
             torch.cuda.synchronize()
 
+    def where(prof):
+        """(graph launch index, its pass counts) of the launches whose NTT
+        pass counts differ, and the trace's first three device kernels."""
+        from torch.autograd.profiler_util import _filter_name
+        launches, by_corr, first = [], {}, []
+        for e in prof.profiler.kineto_results.events():
+            name = e.name()
+            if _filter_name(name) or getattr(e, "is_hidden_event", lambda: False)():
+                continue
+            if str(e.device_type()).endswith("CUDA"):
+                by_corr.setdefault(e.correlation_id(), []).append(name)
+                first.append((e.start_ns(), name[:60]))
+            elif name in ("cudaGraphLaunch", "cuGraphLaunch"):
+                launches.append(e.correlation_id())
+        uneven = []
+        for i, c in enumerate(launches):
+            counts = {}
+            for name in by_corr.get(c, ()):
+                m = nk._PASS_NAME.search(name)
+                if m:
+                    counts[m.groups()] = counts.get(m.groups(), 0) + 1
+            if counts.get(("false", "false"), 0) != counts.get(("true", "false"), 0) or \
+                    counts.get(("true", "true"), 0) != counts.get(("false", "true"), 0):
+                uneven.append((i, len(launches), counts))
+        return uneven, [n for _, n in sorted(first)[:3]]
+
+    acts = [ProfilerActivity.CUDA, ProfilerActivity.CPU]
     for name, vm in vms.items():
         args = [vm._arg_cts_batch[i] for i in range(len(inputs))]
-        for variant in ("plain", "drained"):
-            lossy, calls = 0, []
+        for variant in ("plain", "drained", "warmed"):
+            lossy, calls, places = 0, [], []
             for _ in range(n_runs):
                 if variant == "drained":
                     drain()
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with profile(activities=acts) as prof:
+                    if variant == "warmed":
+                        torch.ones(1, device="cuda").add_(1)
+                        torch.cuda.synchronize()
                     vm.executor.run_encrypted_batch(args)
                     torch.cuda.synchronize()
                 try:
                     got = nk.launches_in_profile(prof.key_averages())
                     calls.append(got["ntt_fwd_cuda"] + got["ntt_inv_cuda"])
-                except nk.TraceLossError:
+                except nk.TraceLossError as e:
                     lossy += 1
+                    places.append((str(e), where(prof)))
             print(f"[probe] {card}: {name}, {variant}: {lossy} of {n_runs} traces lost "
                   f"NTT pass records; NTT calls the others held: {sorted(calls)}", flush=True)
+            for p in places:
+                print(f"[probe]   {p}", flush=True)
     return 0
 
 

@@ -305,3 +305,19 @@ def test_launches_in_profile():
     assert launches_in_profile([]) == {"ntt_fwd_cuda": 0, "ntt_inv_cuda": 0}
     with pytest.raises(TraceLossError, match="pass-A"):
         launches_in_profile(rows[:1])
+
+
+def test_passes_in_profile():
+    """Each mode's pass-A and pass-B kernels as a trace holds them, unequal
+    ones too (a trace that lost a record: what chip_smoke.py reports as a
+    lower bound once every attempt at a trace lost records)."""
+    from dacapo_tpu_torch.crypto.cuda.ntt_kernel import passes_in_profile
+    name = "void (anonymous namespace)::ntt_pass<{}, {}, {}>(unsigned int const*, unsigned int*)"
+    rows = [_TraceRow(name.format(14, "false", "false"), 593),
+            _TraceRow(name.format(14, "true", "false"), 594),
+            _TraceRow(name.format(14, "true", "true"), 5),
+            _TraceRow(name.format(15, "true", "true"), 1),
+            _TraceRow(name.format(14, "false", "true"), 6),
+            _TraceRow("ntt_pass<14, false, false> (host)", 9, "DeviceType.CPU")]
+    assert passes_in_profile(rows) == {"ntt_fwd_cuda": (593, 594), "ntt_inv_cuda": (6, 6)}
+    assert passes_in_profile([]) == {"ntt_fwd_cuda": (0, 0), "ntt_inv_cuda": (0, 0)}
