@@ -86,21 +86,28 @@
    (c) HEVM("tpu_n15b") (native bootstraps, radix 7) loads the deep DaCapo
    program the port compiled in 4 (depth 20, 2 bootstraps to level 14, 2^14
    slots) on a fresh keyset, the load running each bootstrap once (its galois keys,
-   conjugation key and diagonals are made there) and capturing the graphs;
+   conjugation key and diagonals are made there) and capturing the graphs,
+   the segment windows' and then one per bootstrap signature;
    one timed segmented request (RMS against the plaintext model <= 1e-4,
-   2 native bootstraps, the NTT kernel launched in both modes, the plain
-   NTT never), rerun per-op with the input RNG restored (bit-equal), one
-   request timed by window and one profiled (the NTT calls in its trace
+   2 native bootstraps, both graph replays, the NTT kernel in both modes
+   counted as the wrapper's launches plus the replayed graphs' records, the
+   plain NTT never), rerun per-op with the input RNG restored (bit-equal;
+   its 2 bootstraps eager, "per_op", which drops the bootstrap graphs), one
+   request timed by window (it captures the bootstrap graphs again, then
+   replays both) and one profiled (the NTT calls in its trace
    at most those the wrapper and the replayed graphs' records count); (b) on the
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
    and nl=2 to level 14 (RMS <= 1e-5), timed twice, one bootstrap
    profiled (idle share, kernels, NTT calls of each mode on the device);
+   then its signature captured as a CUDA graph (warm-up, recording and
+   instantiation seconds, pool bytes), two replays timed, byte-equal to
+   the eager output, one replay profiled (idle share, NTT calls);
    (d) the same HEVM loads the program again under the JAX package's 16
    GiB plan (DACAPO_TPU_HBM_BYTES = 2^34): its galois keys pass the key
    budget, so it loads on the segment path with a key arena (the native
    bootstraps read theirs through the LRU from pinned host memory) and
    serves the request ciphertext of (c) again: RMS, 2 bootstraps
-   (timed), every graph replayed, the planned key copies, device key bytes
+   (timed; eager, "key_budget"), every graph replayed, the planned key copies, device key bytes
    within the budget, outputs bit-equal to (c)'s; one request profiled;
 10. the basic phase: the five non-MLP rows of the basic list
     (SobelFilter, HarrisCornerDetection, LinearRegression, Multivariate on
@@ -150,12 +157,14 @@
     rotation keys without loading the program (HEVM.make_keys), the keyset
     is saved in halves (the server's without the secret key), every earlier
     VM is freed, a server HEVM loads the program (warming each of its
-    bootstrap signatures, which must equal expected.json's, and capturing
-    the graphs; no oracle graph), a client HEVM encrypts the golden input
-    and ships it; the server runs it per-op (jit=False, the warm-up), on
-    the segment path (timed, its bootstraps timed apart) and on the segment
-    path with the bound on the bootstrap's planes lifted (what it costs; no
-    plane dropped): each
+    bootstrap signatures, which must equal expected.json's, capturing the
+    segment graphs and then one CUDA graph per bootstrap signature the
+    plane bound leaves room to pin; no oracle graph), a client HEVM
+    encrypts the golden input and ships it; the server runs it on the
+    segment path (timed, its bootstraps timed apart: every boot window a
+    graph replay but those eager for a stated reason, EAGER_REASONS, as
+    the executor's plan says) and per-op (jit=False: every bootstrap eager,
+    "per_op"): each
     request's result shipped back and decrypted by the client (RMS of the
     10 logits <= 9.5152e-4), 18 native bootstraps, no key made, no plain
     NTT, NTT calls in both modes (the wrapper's launches outside graphs
@@ -236,6 +245,9 @@ NATIVE_PLAN_BYTES = 16 << 30
 # resident plaintexts, and 55 % of it below its twelve 10.5 MB keys
 BASIC_PLAN_BYTES = 64 << 20
 KEY_BUDGET_FRAC = 0.55         # vm/executor.py HEVMExecutor.KEY_BUDGET_FRAC
+# why a native boot window may run eagerly on the card (vm/executor.py
+# boot_window_plan); any other eager bootstrap fails the run
+EAGER_REASONS = {"per_op", "mesh", "key_budget", "dropped_group"}
 
 
 def log(*a):
@@ -1467,6 +1479,14 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
         f"after load, peak {out['peak_load_bytes']}")
     if "bootstrap_warmup" not in vm.load_seconds or len(keys.galois) != ex.n_keys:
         raise AssertionError("the load did not make the bootstrap's keys")
+    out["boot_plan"] = [[wi, list(sig), why] for wi, sig, why in ex.boot_plan()]
+    out["boot_capture"] = ex.capture_stats.get("boot")
+    log(f"[native] bootstrap graphs captured at load: {out['boot_capture']}; boot windows "
+        f"(window, signature, why eager) {out['boot_plan']}")
+    if ("boot_capture" not in vm.load_seconds or not out["boot_capture"]
+            or any(why is not None for *_, why in out["boot_plan"])):
+        raise AssertionError("the deep program's bootstraps are not all graphs: "
+                             f"{out['boot_plan']}, {vm.load_seconds}")
 
     x = np.random.default_rng(expected["input_seed"]).uniform(
         *expected["input_range"], vm.scheme.ctx.config.n_slots)
@@ -1476,7 +1496,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     kept = dict(vm=vm, x=x, want=want, graphs=ex.capture_stats["graphs"], requests=[])
     for i in range(TIMED_REQUESTS_SHORT):
         reset_counts(nk, ntt_mod)
-        calls0, n_keys0 = bs.calls, len(keys.galois)
+        calls0, n_keys0, ntt0 = bs.calls, len(keys.galois), graph_ntt(ex)
         torch.cuda.reset_peak_memory_stats()
         state = rng.state
         t0 = time.perf_counter()
@@ -1484,17 +1504,20 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
         vm.run()
         res = vm.getOutput()[0]
         torch.cuda.synchronize()
-        r = dict(request_s=time.perf_counter() - t0, ntt_launches=dict(nk.LAUNCHES),
+        r = dict(request_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
+                 ntt_launches={k: nk.LAUNCHES[k] + v - ntt0[k]
+                               for k, v in graph_ntt(ex).items()},
                  plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls - calls0,
-                 keys_made=len(keys.galois) - n_keys0,
+                 boots=ex.last_bootstraps, keys_made=len(keys.galois) - n_keys0,
                  peak_bytes=torch.cuda.max_memory_allocated())
         r["rms"] = float(np.sqrt(np.mean((res - want) ** 2)))
         r["min_max"] = [float(want.min()), float(want.max())]
         requests.append(r)
         kept["requests"].append((vm._arg_cts[0], ex._last_outputs[0]))
         log(f"[native] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
-            f"(bar {RMS_BAR_NATIVE_DEEP}), {r['bootstraps']} native bootstraps, NTT launches "
-            f"{r['ntt_launches']}, plain NTT calls {r['plain_ntt_calls']}, keys made "
+            f"(bar {RMS_BAR_NATIVE_DEEP}), {r['bootstraps']} native bootstraps "
+            f"({r['boots']}), NTT calls {r['ntt_launches']} (launched outside graphs "
+            f"{r['eager_ntt_launches']}), plain NTT calls {r['plain_ntt_calls']}, keys made "
             f"{r['keys_made']}, peak {r['peak_bytes']} bytes")
         if res.shape != x.shape or not np.isfinite(res).all():
             raise AssertionError("bad output of the deep program")
@@ -1503,6 +1526,9 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
         if r["bootstraps"] != expected["bootstraps"] or expected["bootstraps"] < 2:
             raise AssertionError(f"{r['bootstraps']} native bootstraps ran, the program "
                                  f"has {expected['bootstraps']}")
+        if r["boots"] != dict(replayed=expected["bootstraps"], eager={}):
+            raise AssertionError(f"the deep request's bootstraps were not all replays: "
+                                 f"{r['boots']}")
         if min(r["ntt_launches"].values()) <= 0 or any(r["plain_ntt_calls"].values()):
             raise AssertionError(f"the NTT kernel did not carry the request: {r}")
         if r["keys_made"]:
@@ -1520,20 +1546,34 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     torch.cuda.synchronize()
     vm.jit = "auto"
     out["per_op_request_s"] = time.perf_counter() - t0
+    out["per_op_boots"] = ex.last_bootstraps
     out["segment_equals_per_op"] = all(
         torch.equal(a, b) for a, b in zip(ex._last_outputs[0], kept_outs))
     log(f"[native] request median of {TIMED_REQUESTS_SHORT} (segment) "
         f"{out['request_median_s']:.3f} s; the "
-        f"last per-op {out['per_op_request_s']:.3f} s, output ciphertexts bit-equal: "
-        f"{out['segment_equals_per_op']}")
+        f"last per-op {out['per_op_request_s']:.3f} s ({out['per_op_boots']}), output "
+        f"ciphertexts bit-equal: {out['segment_equals_per_op']}")
     if not out["segment_equals_per_op"]:
         raise AssertionError("the deep program's segment and per-op outputs differ")
+    if out["per_op_boots"] != dict(replayed=0, eager={"per_op": expected["bootstraps"]}):
+        raise AssertionError(f"the per-op request's bootstraps: {out['per_op_boots']}")
 
+    # the per-op request dropped the bootstrap graphs: this request captures
+    # them again before its first window
     ex.set_profiling(True)
+    t0 = time.perf_counter()
     vm.setInput(0, x)
     vm.run()
+    torch.cuda.synchronize()
     ex.set_profiling(False)
+    out["recapture_request_s"] = time.perf_counter() - t0
     out["windows_by_kind"] = ex.seg_report(sys.stdout)
+    out["boot_recapture"] = ex.capture_stats.get("boot")
+    log(f"[native] the segment request after the per-op one {out['recapture_request_s']:.3f} s "
+        f"(windows timed apart), its bootstraps {ex.last_bootstraps}, graphs captured again "
+        f"{out['boot_recapture']}")
+    if ex.last_bootstraps != dict(replayed=expected["bootstraps"], eager={}):
+        raise AssertionError(f"after the per-op request: {ex.last_bootstraps}")
 
     boot_s = []
     native = bs.bootstrap
@@ -1592,6 +1632,42 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     boot_launches = prof_b["ntt_launches"]
     sb.update(rotation_keys=len(bs.rotation_steps()), conjugation_key=keys.conj is not None,
               peak_bytes=torch.cuda.max_memory_allocated())
+    # the same signature as a CUDA graph: capture, replays, one profiled
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    rec = bs.capture(2, ct.scale, 14)
+    torch.cuda.synchronize()
+    sg = sb["graph"] = dict(capture_total_s=time.perf_counter() - t0,
+                            reserved_growth_bytes=torch.cuda.memory_reserved() - reserved,
+                            **{k: rec[k] for k in ("warmup_s", "capture_s", "instantiate_s",
+                                                   "pool_bytes", "ntt")})
+    replay_s, replays0 = [], bs.replays
+    for i in range(TIMED_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rdata, _ = bs.bootstrap(ct.data, 2, ct.scale, 14)
+        torch.cuda.synchronize()
+        replay_s.append(time.perf_counter() - t0)
+    sg.update(seconds=replay_s, median_s=statistics.median(replay_s),
+              replays=bs.replays - replays0, equals_eager=bool(torch.equal(rdata, data)))
+    prof_g = sg["profiled"] = profile_request(
+        torch, lambda: bs.bootstrap(ct.data, 2, ct.scale, 14), "native bootstrap graph",
+        SimpleNamespace(replays=0, bootstrapper=bs), nk, ntt_mod, cpu=False,
+        trace_loss_ok=True)
+    log(f"[native] the standalone bootstrap as a CUDA graph: captured in "
+        f"{sg['capture_total_s']:.3f} s (warm-up {sg['warmup_s']:.3f}, recording "
+        f"{sg['capture_s']:.3f}, instantiation {sg['instantiate_s']:.3f}; pool "
+        f"{sg['pool_bytes']} bytes, {sg['ntt']} NTT calls recorded), replays "
+        f"{', '.join(f'{t:.3f}' for t in replay_s)} s against eager "
+        f"{', '.join(f'{t:.3f}' for t in times[1:])} s; profiled replay: device busy "
+        f"{prof_g['device_busy_s']} s of {prof_g['wall_s']:.4f} s (idle share "
+        f"{prof_g['idle_share']}), eager: {prof_b['device_busy_s']} s of "
+        f"{prof_b['wall_s']:.4f} s (idle share {prof_b['idle_share']}); byte-equal to the "
+        f"eager output: {sg['equals_eager']}")
+    if (not sg["equals_eager"] or sg["replays"] != TIMED_REQUESTS
+            or min(prof_g["ntt_launches"].values()) <= 0
+            or any(prof_g["plain_ntt_calls"].values())):
+        raise AssertionError(f"the standalone bootstrap's graph: {sg}")
     log(f"[native] standalone bootstrap tpu_n15b nl=2 scale 2^{s.ctx.config.scale_bits} -> "
         f"level {sb['level']}: "
         f"rms {sb['rms']:.4e} (bar {RMS_BAR_NATIVE_BOOT}), max |err| {sb['max_abs_err']:.3e}; "
@@ -1606,7 +1682,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
                              f"{prof_b['plain_ntt_calls']}")
     out["peak_bytes"] = max([out["peak_load_bytes"], sb["peak_bytes"]]
                             + [r["peak_bytes"] for r in requests])
-    return out, req_launches, boot_launches, kept
+    return out, req_launches, (boot_launches, prof_g["ntt_launches"]), kept
 
 
 def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
@@ -1703,7 +1779,9 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
             if not r["rms"] <= RMS_BAR_NATIVE_DEEP or not r["equals_resident"]:
                 raise AssertionError(f"the deep program under the budget: rms {r['rms']}, "
                                      f"bit-equal to the resident VM {r['equals_resident']}")
+            r["boots"] = ex.last_bootstraps
             if (r["bootstraps"] != 2 or r["graph_replays"] != cap["graphs"]
+                    or r["boots"] != dict(replayed=0, eager={"key_budget": 2})
                     or kc["host"] + kc["device"] != cap["key_copies_planned"]):
                 raise AssertionError(f"the deep program under the budget: {r}")
             if r["key_device_peak_bytes"] > galois.budget:
@@ -1756,23 +1834,23 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
     the server's without the secret (save_keyset(parts=...)). With every VM
     of the earlier phases and the full VM freed, a server HEVM loads the
     program (no s_ntt; the load warms each bootstrap signature, which makes
-    the diagonals, and captures the segment graphs) and a client HEVM
+    the diagonals, captures the segment graphs and the bootstrap graphs of
+    the signatures whose planes the bound leaves pinned) and a client HEVM
     encrypts the golden input and ships it. The server runs the shipped
-    ciphertext three times: per-op (jit=False), the warm-up, then on the
-    segment path, timed (its bootstraps timed apart, a synchronize around
-    each), under each path's bound on the bootstrap's planes; then on the
-    segment path again with that bound lifted (after a warm-up of the
-    signatures, which encodes the dropped planes again): what the bound
-    costs. Each: the client decrypts the shipped result (RMS of the 10
-    logits <= 9.5152e-4), all 18 bootstraps ran natively (the executor's
-    bootstrapper is the native one, the load captured no oracle graph), no
+    ciphertext twice, under each path's bound on the bootstrap's planes: on
+    the segment path, timed (its bootstraps timed apart, a synchronize
+    around each, replays and eager ones apart), then per-op (jit=False),
+    whose eager bootstraps the segment request's output is held to. Each:
+    the client decrypts the shipped result (RMS of the 10 logits <=
+    9.5152e-4), all 18 bootstraps ran natively (the executor's bootstrapper
+    is the native one, the load captured no oracle graph), the replays and
+    the eager bootstraps by reason are the executor's plan (boot_plan), no
     key was made, no plain NTT ran, and the NTT calls (the wrapper's
     launches outside graphs plus what each replayed graph recorded at
     capture) are positive in both modes; the output ciphertexts are
-    byte-equal; without the bound no plane was dropped. Then the NTT
-    is held to its plain version at every batch size the load and the
-    requests gave it. Returns (results, the NTT calls of the timed request,
-    the NTT check)."""
+    byte-equal. Then the NTT is held to its plain version at every batch
+    size the load and the requests gave it. Returns (results, the NTT calls
+    of the timed request, the NTT check)."""
     from dacapo_tpu_torch.crypto import keys as keymod
     from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper
     from dacapo_tpu_torch.models import cnn_he, resnet
@@ -1875,6 +1953,19 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
     if ex.bootstrap_stats["signatures"] != expected["boot_signatures"]:
         raise AssertionError(f"the load warmed {ex.bootstrap_stats['signatures']}, "
                              f"expected.json has {expected['boot_signatures']}")
+    # which boot windows replay a CUDA graph, and why each other one is eager
+    plan = [[wi, list(sig), why] for wi, sig, why in ex.boot_plan()]
+    planned = dict(replayed=sum(why is None for *_, why in plan), eager={})
+    for *_, why in plan:
+        if why is not None:
+            planned["eager"][why] = planned["eager"].get(why, 0) + 1
+    out.update(boot_plan=plan, boot_planned=planned, boot_capture=ex.capture_stats.get("boot"),
+               planes_pinned_bytes=sum(p[2] for p in bs._pinned.values()))
+    log(f"[resnet native] bootstrap graphs captured at load {out['boot_capture']}; pinned "
+        f"planes {out['planes_pinned_bytes']} bytes; boot windows planned {planned}")
+    if ("boot_capture" not in server.load_seconds or not planned["replayed"]
+            or set(planned["eager"]) - EAGER_REASONS):
+        raise AssertionError(f"the native ResNet's bootstrap graphs: {plan}")
 
     client = HEVM("tpu_n15b", keyset_dir=halves["client"], mode="client")
     client.loadClient(hevm)
@@ -1889,28 +1980,24 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
     native = bs.bootstrap
 
     def timed_bootstrap(*args):
+        replays = bs.replays
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = native(*args)
         torch.cuda.synchronize()
-        boot_s.append(time.perf_counter() - t0)
+        boot_s.append((time.perf_counter() - t0, bs.replays > replays))
         return res
 
     bs.bootstrap = timed_bootstrap
     requests, first = {}, None
     try:
-        for kind, jit in (("warm-up", False), ("timed", "auto"), ("unbounded", "auto")):
-            if kind == "unbounded":
-                # what the plane bound costs the segment path: the bound
-                # lifted, the dropped planes encoded again by a warm-up
-                ex.plane_bound = False
-                bs.set_plane_budget(None)
-                t0 = sync()
-                ex.warm_bootstraps()
-                out["unbounded_warmup_s"] = sync() - t0
+        # the segment request first, on the graphs the load captured; the
+        # per-op request (eager bootstraps, which drop the graphs) is what
+        # its output is held to
+        for kind, jit in (("timed", "auto"), ("per-op", False)):
             reset_counts(nk, ntt_mod)
-            calls0, replays0, n_keys0 = bs.calls, ex.replays, len(galois)
-            replayed0 = dict(ex.replayed_ntt)
+            calls0, replays0, n_keys0 = bs.calls, graph_replays(ex), len(galois)
+            replayed0 = graph_ntt(ex)
             evictions0, reencodes0 = bs.evictions, bs.reencodes
             boot_s.clear()
             torch.cuda.reset_peak_memory_stats()
@@ -1919,11 +2006,17 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
             ret = server.run()
             request_s = sync() - t0
             blobs = [server.getOutputCtxt(j) for j in range(server.prog.res_length)]
-            replayed = {k: ex.replayed_ntt[k] - replayed0[k] for k in replayed0}
+            replayed = {k: v - replayed0[k] for k, v in graph_ntt(ex).items()}
+            replay_s = [t for t, rep in boot_s if rep]
+            eager_s = [t for t, rep in boot_s if not rep]
             r = requests[kind] = dict(
-                request_s=request_s, bootstrap_s=list(boot_s), bootstraps_total_s=sum(boot_s),
-                segments_and_rest_s=request_s - sum(boot_s), bootstraps=bs.calls - calls0,
-                graph_replays=ex.replays - replays0, eager_ntt_launches=dict(nk.LAUNCHES),
+                request_s=request_s, bootstrap_s=[t for t, _ in boot_s],
+                bootstrap_replayed=[rep for _, rep in boot_s],
+                bootstraps_total_s=sum(t for t, _ in boot_s), replayed_s=sum(replay_s),
+                eager_s=sum(eager_s), boots=ex.last_bootstraps,
+                segments_and_rest_s=request_s - sum(t for t, _ in boot_s),
+                bootstraps=bs.calls - calls0,
+                graph_replays=graph_replays(ex) - replays0, eager_ntt_launches=dict(nk.LAUNCHES),
                 graph_ntt_launches=replayed,
                 ntt_launches={k: nk.LAUNCHES[k] + replayed[k] for k in replayed},
                 plain_ntt_calls=dict(ntt_mod.CALLS), keys_made=len(galois) - n_keys0,
@@ -1938,10 +2031,13 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
             r["logits"] = logits.tolist()
             if first is None:
                 first = blobs
-            r["equals_warmup"] = blobs == first
+            r["equals_segment"] = blobs == first
+            span = lambda ts: f"{min(ts):.3f}-{max(ts):.3f}" if ts else "none"
             log(f"[resnet native] {kind} request ({'segment' if jit else 'per-op'}) "
                 f"{request_s:.3f} s: {r['bootstraps']} native bootstraps "
-                f"{r['bootstraps_total_s']:.3f} s (each {min(boot_s):.3f}-{max(boot_s):.3f} s), "
+                f"{r['bootstraps_total_s']:.3f} s ({r['boots']}; replays {len(replay_s)} "
+                f"{r['replayed_s']:.3f} s, each {span(replay_s)} s; eager {len(eager_s)} "
+                f"{r['eager_s']:.3f} s, each {span(eager_s)} s), "
                 f"the rest {r['segments_and_rest_s']:.3f} s, {r['graph_replays']} graph "
                 f"replays; signature plane groups dropped {r['plane_groups_dropped']}, planes "
                 f"encoded again {r['planes_reencoded']}; NTT calls {r['ntt_launches']} "
@@ -1949,7 +2045,7 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
                 f"outside graphs), plain NTT calls {r['plain_ntt_calls']}; keys made "
                 f"{r['keys_made']}; peak {r['peak_bytes']} bytes; client decrypt "
                 f"{r['client_decrypt_s']:.3f} s, rms {r['rms']:.4e} (bar {RMS_BAR_RESNET}); "
-                f"output ciphertexts byte-equal to the warm-up's: {r['equals_warmup']}")
+                f"output ciphertexts byte-equal to the segment request's: {r['equals_segment']}")
             if ret is not None:
                 raise AssertionError("the server returned decrypted outputs")
             if logits.shape != (10,) or not np.isfinite(logits).all():
@@ -1962,15 +2058,17 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
             if (any(r["plain_ntt_calls"].values()) or min(r["ntt_launches"].values()) <= 0
                     or r["keys_made"]):
                 raise AssertionError(f"the native ResNet request: {r}")
-            if not r["equals_warmup"]:
+            if not r["equals_segment"]:
                 raise AssertionError(f"the {kind} request's output ciphertexts differ from "
-                                     "the warm-up's")
-            if kind == "unbounded" and (r["plane_groups_dropped"] or r["planes_reencoded"]):
-                raise AssertionError(f"planes dropped without a bound: {r}")
+                                     "the segment request's")
+            want_boots = (planned if jit else
+                          dict(replayed=0, eager={"per_op": expected["bootstraps"]}))
+            if r["boots"] != want_boots or len(replay_s) != r["boots"]["replayed"]:
+                raise AssertionError(f"the {kind} request's bootstraps {r['boots']}, "
+                                     f"planned {want_boots}")
     finally:
         del bs.bootstrap
         server.jit = "auto"
-        ex.plane_bound = True
         shapes.stop()
     out["requests"] = requests
     out["request_s"] = requests["timed"]["request_s"]
@@ -1979,12 +2077,10 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
     check = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n15b", sorted(shapes.sizes),
                                 "ResNet native")
     log(f"[resnet native] timed request {out['request_s']:.3f} s (bootstraps "
-        f"{requests['timed']['bootstraps_total_s']:.3f} s, the rest "
-        f"{requests['timed']['segments_and_rest_s']:.3f} s), without the plane bound "
-        f"{requests['unbounded']['request_s']:.3f} s (after a warm-up of "
-        f"{out['unbounded_warmup_s']:.3f} s; peak {requests['unbounded']['peak_bytes']} "
-        f"bytes), per-op (the warm-up) {requests['warm-up']['request_s']:.3f} s; segment "
-        f"== per-op byte for byte; peak {out['peak_bytes']} bytes")
+        f"{requests['timed']['bootstraps_total_s']:.3f} s: {requests['timed']['boots']}, the "
+        f"rest {requests['timed']['segments_and_rest_s']:.3f} s), per-op "
+        f"{requests['per-op']['request_s']:.3f} s; segment == per-op byte for byte; peak "
+        f"{out['peak_bytes']} bytes")
     del server, client
     gc.collect()
     torch.cuda.empty_cache()
@@ -2511,8 +2607,8 @@ def main():
     def native(kd):
         out = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
         out["tpu_n15b"], by_path["native_deep_tpu_n15b_request"], \
-            by_path["native_bootstrap_tpu_n15b"], kept = serve_native(
-                np, torch, HEVM, nk, ntt_mod, params, kd, files)
+            (by_path["native_bootstrap_tpu_n15b"], by_path["native_bootstrap_graph_tpu_n15b"]), \
+            kept = serve_native(np, torch, HEVM, nk, ntt_mod, params, kd, files)
         out["tpu_n15b_budget"], by_path["native_deep_keystream_tpu_n15b_request"] = \
             serve_native_budget(np, torch, nk, ntt_mod, files, kept)
         del kept

@@ -34,10 +34,23 @@ Device memory: the plaintext diagonals (one [nl, N] plane each) and the
 constants are encoded on first use and cached on the device for the life of
 the bootstrapper; the galois keys of the baby and giant steps and the
 conjugation key are generated on first use (crypto/keys.py).
+
+CUDA graphs (the port's counterpart of the JAX package's per-op jit, which
+makes a TPU bootstrap a few hundred compiled dispatches where an eager one
+here launches ~70k kernels): `capture(nl, scale, target_level)` records one
+signature's `_bootstrap` (the device work) into a graph, which every later
+`bootstrap` of that signature on the card replays; `bootstrap` itself keeps
+the host bookkeeping (the count, the planned sequence's position, the plane
+bound's groups) for eager calls and replays alike. A graph bakes in the
+addresses of every plane and key it reads: its planes are pinned (out of the
+bound's reach) until `drop_graphs`, and a replaced key makes `bootstrap`
+refuse the graph. `capture_blocker` says why no graph can run now, `graph_plan`
+which signatures the plane bound leaves room to pin.
 """
 
 import dataclasses
 import math
+import time
 from dataclasses import dataclass
 from fractions import Fraction
 
@@ -46,6 +59,7 @@ import torch
 from numpy.polynomial import chebyshev as C
 
 from .crt_lift import pair_crt_expand
+from .cuda import ntt_kernel
 
 
 @dataclass(frozen=True)
@@ -290,6 +304,7 @@ class SlotLinearTransform:
             d = np.roll(self.diags[off], g * self.b)
             pt = self.bs.encode_vec(d, pt_scale, nl)
             self._pt_cache[key] = pt
+        self.bs._read(self._pt_cache, key, pt)
         return pt
 
     def rotation_steps(self):
@@ -371,6 +386,17 @@ class NativeBootstrapper:
         self._dropped = set()           # (cache id, key) of the planes dropped
         self.evictions = 0      # signature groups dropped
         self.reencodes = 0      # planes encoded again after their group was dropped
+        # the CUDA graphs (capture), one per signature and target level, and
+        # the planes they read, pinned: (cache id, key) -> (cache, key,
+        # bytes, the signature that pinned it)
+        self._graphs = {}
+        self._pinned = {}
+        self._pin_sigs = set()
+        self._reads = None              # what the running bootstrap reads (_read)
+        self._sig_planes = {}           # (nl, scale) -> what its last eager run read
+        self.replays = 0        # graph replays
+        # NTT calls the replayed graphs ran (what each recorded at capture)
+        self.replayed_ntt = dict.fromkeys(ntt_kernel.RECORDED, 0)
 
     # ------------------------------------------------------------ helpers
     def encode_vec(self, vec, scale, nl):
@@ -389,7 +415,14 @@ class NativeBootstrapper:
             vec = np.full(self.s.ctx.config.n_slots, c, dtype=np.complex128)
             pt = self.encode_vec(vec, scale, nl)
             self._enc_cache[key] = pt
+        self._read(self._enc_cache, key, pt)
         return pt
+
+    def _read(self, cache, key, pt):
+        """Note a plane the running bootstrap reads (the planes a graph of
+        its signature would bake in)."""
+        if self._reads is not None:
+            self._reads[(id(cache), key)] = (cache, key, pt.nbytes)
 
     def rotate_bank(self, data, nl, steps):
         """Hoisted batch of rotations; returns list aligned with `steps`.
@@ -632,10 +665,13 @@ class NativeBootstrapper:
         executor plans its key arena); the running signature's always stay.
         A dropped plane is encoded again at its next use under the same
         cache key, so every output is unchanged (`reencodes` counts them).
-        With a sequence, the planes held outside any signature's group
-        (bootstraps run before one) are dropped; a bound below the planes
-        held drops groups now, by the same rule."""
+        The planes a CUDA graph reads are pinned (capture): they count
+        against the bound and are never dropped. With a sequence, the
+        graphs are dropped first (drop_graphs) and then the planes held
+        outside any signature's group (bootstraps run before one); a bound
+        below the planes held drops groups now, by the same rule."""
         if sequence is not None:
+            self.drop_graphs()
             grouped = {(id(c), k) for g in self._groups.values() for c, k, _ in g}
             for key, cache in self._plane_entries().items():
                 if key not in grouped:
@@ -672,8 +708,10 @@ class NativeBootstrapper:
 
     def _evict(self, limit):
         """Drop whole signature groups, the furthest next use first, until
-        the planes held take at most `limit` bytes."""
-        held = sum(b for g in self._groups.values() for _, _, b in g)
+        the planes held, the pinned ones first, take at most `limit`
+        bytes."""
+        held = (sum(b for g in self._groups.values() for _, _, b in g)
+                + sum(p[2] for p in self._pinned.values()))
         while self._groups and held > limit:
             victim = max(self._groups, key=self._next_use)
             for cache, key, b in self._groups.pop(victim):
@@ -685,36 +723,209 @@ class NativeBootstrapper:
     def _make_room(self, sig):
         """Drop other signatures' planes until this one's fit the bound: as
         many bytes as its planes took when last held, for a signature not
-        held before the fewest any signature took."""
-        if sig not in self._groups:
+        held before the fewest any signature took. A pinned signature's
+        planes stay anyway."""
+        if sig not in self._groups and sig not in self._pin_sigs:
             need = self._group_bytes.get(sig, min(self._group_bytes.values(), default=0))
             self._evict(self.plane_budget - need)
 
     def bootstrap(self, data, nl, scale, target_level):
-        """Bootstrap (_bootstrap below); once a sequence is planned the
-        planes it encodes are kept as its input signature's, under the
-        bound when there is one (set_plane_budget)."""
-        if not self._sequence:
-            return self._bootstrap(data, nl, scale, target_level)
+        """Bootstrap int32 [2, >=nl, N] at nl rows to the chain of
+        target_level: (data', (nl', scale')). The host bookkeeping runs here
+        on every call: the count, and once a sequence is planned where the
+        request is, room for the signature's planes under the bound, and
+        the planes the call encodes kept as its input signature's group
+        (set_plane_budget). The device work is `_bootstrap`, eagerly, or on
+        the card the replay of the signature's CUDA graph where `capture`
+        made one; a replay encodes nothing, so it leaves every count and
+        cache as an eager call of a pinned signature does."""
+        if nl < 2:
+            raise ValueError(
+                "native bootstrap needs the bottom prime pair (nl >= 2); "
+                "the planner must not drop bootstrap operands below level "
+                f"{2 // self.s.ctx.config.rescale_rows}")
         sig = (int(nl), float(scale))
-        if sig in self._sequence:                        # where the request is
-            self._pos = (self._pos + self._next_use(sig)) % len(self._sequence)
-        if self.plane_budget is not None:
-            self._make_room(sig)
-        before = self._plane_entries()
-        out = self._bootstrap(data, nl, scale, target_level)
-        after = self._plane_entries()
-        new = [key for key in after if key not in before]
-        group = self._groups.setdefault(sig, [])
-        group.extend((after[key], key[1], after[key][key[1]].nbytes) for key in new)
-        self._group_bytes[sig] = sum(b for _, _, b in group)
-        self.reencodes += sum(key in self._dropped for key in new)
-        self._dropped.difference_update(new)
-        self._pos = (self._pos + 1) % len(self._sequence)
+        rec = self._graphs.get(sig + (int(target_level),))
+        if rec is not None and not self._current(rec):
+            raise RuntimeError(f"the CUDA graph of bootstrap signature {sig} reads keys "
+                               "replaced since its capture: capture it again or drop_graphs()")
+        seq = self._sequence
+        if seq:
+            if sig in seq:                               # where the request is
+                self._pos = (self._pos + self._next_use(sig)) % len(seq)
+            if self.plane_budget is not None:
+                self._make_room(sig)
+        self.calls += 1
+        if rec is not None:
+            rec["inp"].copy_(data[:, :nl, :])
+            rec["graph"].replay()
+            self.replays += 1
+            for k, v in rec["ntt"].items():
+                self.replayed_ntt[k] += v
+            out, new = (rec["out"].clone(), rec["meta"]), []
+        else:
+            before = self._plane_entries() if seq else {}
+            self._reads = {}
+            try:
+                out = self._bootstrap(data, nl, scale, target_level)
+            finally:
+                self._sig_planes[sig], self._reads = self._reads, None
+            after = self._plane_entries() if seq else {}
+            new = [key for key in after if key not in before]
+        if seq:
+            if new or sig not in self._pin_sigs:
+                group = self._groups.setdefault(sig, [])
+                group.extend((after[key], key[1], after[key][key[1]].nbytes) for key in new)
+                self._group_bytes[sig] = sum(b for _, _, b in group)
+            self.reencodes += sum(key in self._dropped for key in new)
+            self._dropped.difference_update(new)
+            self._pos = (self._pos + 1) % len(seq)
         return out
 
+    # ----------------------------------------------------- CUDA graphs
+    def _current(self, rec):
+        """Whether a graph still reads the keys it was captured with."""
+        keys = self.s.keys
+        return (rec["keys"] is keys and rec["galois"] is keys.galois
+                and rec["generation"] == keys.galois.generation and rec["conj"] is keys.conj)
+
+    def capture_blocker(self):
+        """Why no bootstrap can run as a CUDA graph now, or None: "cpu"
+        (graphs are the card's), "key_budget" (the keys come through the
+        key store's LRU, which frees what a graph would bake in) or "mesh"
+        (the keys are split over a mesh and a key switch all-gathers).
+        Which signatures the plane bound leaves room for is graph_plan's."""
+        if self.s.device.type != "cuda":
+            return "cpu"
+        if self.s.keys.galois.budget is not None:
+            return "key_budget"
+        if self.ev.shard is not None:
+            return "mesh"
+        return None
+
+    def graph_plan(self, sigs=()):
+        """{(nl, scale): None, or "dropped_group"} for each signature of the
+        planned sequence, of `sigs` and of each run so far: None where its
+        bootstraps may run as a graph under the plane bound. A graph bakes
+        in every plane its signature reads, so these stay pinned while it
+        lives: without a bound every signature; under it the signatures,
+        the most bootstraps first, while the pinned planes and what any
+        other signature reads besides them (held while it runs) fit the
+        bound. The planes are those of each signature's last eager run (a
+        load's warm-up runs each)."""
+        seq = self._sequence
+        sigs = list(dict.fromkeys(seq + list(sigs) + list(self._sig_planes)))
+        if self.plane_budget is None:
+            return dict.fromkeys(sigs)
+        planes = {s: self._sig_planes.get(s, {}) for s in sigs}
+        size = lambda entries: sum(p[2] for p in entries.values())
+        order = sorted(sigs, key=lambda s: (-seq.count(s), seq.index(s) if s in seq else len(seq)))
+        pinned, chosen = {}, []
+        for s in order:
+            cand = {**pinned, **planes[s]}
+            need = max((size({e: p for e, p in planes[t].items() if e not in cand})
+                        for t in sigs if t != s and t not in chosen), default=0)
+            if size(cand) + need <= self.plane_budget:
+                pinned, chosen = cand, chosen + [s]
+        return {s: None if s in chosen else "dropped_group" for s in sigs}
+
+    def warm(self, nl, scale, target_level):
+        """One eager bootstrap of a signature without a graph over a zero
+        input on the current stream (its keys, planes and the device caches
+        made now), leaving the count and the request's position as they
+        were."""
+        zero = torch.zeros((2, nl, self.s.ctx.n), dtype=torch.int32, device=self.s.device)
+        calls, pos = self.calls, self._pos
+        try:
+            # the class's method: a wrapper a caller set on the instance
+            # (chip_smoke.py times bootstraps so) sees no warm-up
+            NativeBootstrapper.bootstrap(self, zero, nl, scale, target_level)
+        finally:
+            self.calls, self._pos = calls, pos
+
+    def capture(self, nl, scale, target_level, pool=None):
+        """The CUDA graph of the signature's bootstrap, made now and replayed
+        by every later `bootstrap` of it on the card. An eager warm-up
+        first fills the Evaluator's, the CRT lift's and the plane caches
+        (no upload from host memory may run under capture; it encodes
+        again what the bound dropped), then
+        `_bootstrap` is recorded over a static input, and the planes it
+        read are pinned (drop_graphs releases them). The capture's calls
+        leave `calls` and the request's position as they were. A graph
+        reads the keys it was captured with (`bootstrap` refuses it after
+        a key is replaced). pool: the memory pool to capture into (the
+        executor's segment graphs', graph by graph after them); the default
+        a pool of its own. Raises if no graph can run (capture_blocker; the
+        bound is the caller's to plan, graph_plan) or the capture fails.
+        Returns the record: graph, inp, out, meta, the NTT calls recorded,
+        warmup_s, capture_s (recording), instantiate_s and pool_bytes (the
+        device memory the capture reserved)."""
+        why = self.capture_blocker()
+        if why is not None:
+            raise RuntimeError(f"bootstrap signature {(nl, scale)} cannot run as a CUDA "
+                               f"graph: {why}")
+        key = (int(nl), float(scale), int(target_level))
+        self._graphs.pop(key, None)
+        dev = self.s.device
+        t0 = time.perf_counter()
+        self.warm(*key)
+        inp = torch.zeros((2, key[0], self.s.ctx.n), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize(dev)
+        # what torch.cuda.graph does as it starts: the device memory reserved
+        # after it grows by what the capture takes
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        ntt0 = dict(ntt_kernel.RECORDED)
+        t1 = time.perf_counter()
+        # recorded on torch's shared capture stream; the warm-up ran on the
+        # current one, whose cached blocks later requests reuse
+        with torch.cuda.graph(graph, pool=pool):
+            out, meta = self._bootstrap(inp, *key[:2], key[2])
+            t2 = time.perf_counter()
+        t3 = time.perf_counter()
+        keys = self.s.keys
+        rec = dict(graph=graph, inp=inp, out=out, meta=meta, keys=keys, galois=keys.galois,
+                   generation=keys.galois.generation, conj=keys.conj,
+                   ntt={k: v - ntt0[k] for k, v in ntt_kernel.RECORDED.items()},
+                   warmup_s=t1 - t0, capture_s=t2 - t1, instantiate_s=t3 - t2,
+                   pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+        self._pin(key[:2])
+        self._graphs[key] = rec
+        return rec
+
+    def _pin(self, sig):
+        """Pin every plane the signature's last eager run read: out of its
+        group, never dropped by the bound, until drop_graphs."""
+        for entry, (cache, key, b) in self._sig_planes[sig].items():
+            self._pinned.setdefault(entry, (cache, key, b, sig))
+        self._pin_sigs.add(sig)
+        for g, members in list(self._groups.items()):
+            kept = [m for m in members if (id(m[0]), m[1]) not in self._pinned]
+            if len(kept) < len(members):
+                self._group_bytes[g] = sum(b for _, _, b in kept)
+                if kept:
+                    self._groups[g] = kept
+                else:
+                    del self._groups[g]
+
+    def drop_graphs(self):
+        """Free every graph; their pinned planes go back under the bound,
+        each into the group of the signature that pinned it."""
+        self._graphs.clear()
+        for cache, key, b, sig in self._pinned.values():
+            if key in cache:
+                self._groups.setdefault(sig, []).append((cache, key, b))
+        for sig in self._pin_sigs:
+            self._group_bytes[sig] = sum(b for _, _, b in self._groups.get(sig, ()))
+        self._pinned.clear()
+        self._pin_sigs.clear()
+
     def _bootstrap(self, data, nl, scale, target_level):
-        """data: int32 [2, nl, N]; returns (data', (nl', scale')).
+        """data: int32 [2, nl, N]; returns (data', (nl', scale')): the device
+        work of a bootstrap (what a CUDA graph records), with the host
+        arithmetic of its scales; the caches it fills are keyed by the
+        input scale.
 
         `target_level` is in hevm levels (composite profiles expand it by
         rescale_rows). The input is dropped to the bottom prime PAIR
@@ -724,13 +935,6 @@ class NativeBootstrapper:
         s = self.s
         ctx = s.ctx
         delta = float(scale)
-
-        if nl < 2:
-            raise ValueError(
-                "native bootstrap needs the bottom prime pair (nl >= 2); "
-                "the planner must not drop bootstrap operands below level "
-                f"{2 // ctx.config.rescale_rows}")
-        self.calls += 1
         q0p = float(ctx.q_primes[0]) * float(ctx.q_primes[1])
         # Inputs that arrive hot (zero-depth boundaries: delta up to ~q0')
         # are cooled by exact single-row rescales until delta fits the

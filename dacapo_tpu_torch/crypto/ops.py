@@ -268,9 +268,14 @@ class Evaluator:
 
     def upscale(self, ct, nl, up_bits: int):
         """Exact multiply by 2^up_bits (the native bootstrap's input
-        pre-upscale and Chebyshev doubling)."""
-        return self.upscale_res(
-            ct, nl, to_dev(self.scalar_rows(1 << up_bits, nl), self.device))
+        pre-upscale and Chebyshev doubling); the multiplier's rows are
+        cached on the device, so a bootstrap graph's capture uploads
+        nothing."""
+        key = ("up", up_bits, nl)
+        ccs = self._tabs.get(key)
+        if ccs is None:
+            ccs = self._tabs[key] = to_dev(self.scalar_rows(1 << up_bits, nl), self.device)
+        return self.upscale_res(ct, nl, ccs)
 
     def upscale_rescale_res(self, ct, nl, ccs, k: int):
         """Scalar multiply followed by a k-row rescale."""

@@ -32,7 +32,10 @@ each of the program's native bootstraps once over a zero input
 (`load_seconds["bootstrap_warmup"]`), so their galois keys, conjugation key
 and plaintext diagonals are made at load and not in the first request;
 these key draws then come before the first `setInput`'s encryption. On the
-CPU they stay lazy, in the JAX package's order.
+CPU they stay lazy, in the JAX package's order. After the segment graphs,
+`load` captures one CUDA graph per native bootstrap signature that the
+segment path replays (`load_seconds["boot_capture"]`; vm/executor.py
+`precompile_bootstraps`).
 
 A bootstrap on any other profile runs the oracle (crypto/bootstrap.py), by
 default on its device path: on the card `load` captures one CUDA graph per
@@ -249,7 +252,8 @@ class HEVM:
     def load(self, cst_path, hevm_path):
         """Full and server modes: constants + bytecode -> executor +
         pre-encoded plaintexts, and on the card the native bootstraps'
-        warm-up, the oracle graphs and the segment graphs. The seconds of
+        warm-up, the oracle graphs, the segment graphs and the native
+        bootstrap's graphs. The seconds of
         each part are kept in `load_seconds`."""
         if self.mode == "client":
             raise RuntimeError("a client VM evaluates nothing: use loadClient")
@@ -306,6 +310,9 @@ class HEVM:
             self.executor.precompile_segments()
             lap()
             parts.append("capture")
+            if self.executor.precompile_bootstraps():
+                lap()
+                parts.append("boot_capture")
         self.load_seconds = dict(zip(parts, np.diff(laps).tolist()))
 
     def make_keys(self, hevm_path):

@@ -9,9 +9,10 @@ Port of dacapo_tpu/vm/executor.py, three of its paths:
   replayed on every request: PyTorch's counterpart of the JAX package's
   per-window `jax.jit`. A bootstrap window runs between replays: the
   device oracle replays its own graph, one per cache key, captured at load
-  (`capture_oracle`, crypto/bootstrap.py); the host-RNG oracle and the
-  native bootstrap run eagerly, as do tiny windows. On the CPU the same plan
-  runs every window eagerly; no graphs exist there.
+  (`capture_oracle`, crypto/bootstrap.py); the native bootstrap replays one
+  graph per input signature (`precompile_bootstraps`, below); the host-RNG
+  oracle runs eagerly, as do tiny windows. On the CPU the same plan runs
+  every window eagerly; no graphs exist there.
 * per-op dispatch (`jit=False`): one Evaluator call per (fused)
   instruction, the counterpart of the reference C++ VM dispatch loop
   (lib/Runtime/SEAL_HEVM.cpp:336-401).
@@ -109,6 +110,23 @@ request's path (`path_budgets`: its whole budget per op, the eager windows'
 plaintexts on the segment path), planned over the request's bootstrap order
 (`_plan_bootstrap_planes`, `_use_path`), and a dropped plane is encoded
 again at its next use.
+
+The native bootstrap's CUDA graphs (the JAX package compiles each of its
+ops once per shape, crypto/ops.py `_jit`): on the card a segment request
+replays one graph per input signature (NativeBootstrapper.capture), captured
+after the segment graphs into their memory pool (a graph's only live output
+is copied out as its replay ends, so any replay order is safe there) by
+`precompile_bootstraps` at load, and again at a request's start when the
+keys or the segment graphs changed or the per-op path dropped them. Each
+boot window of the plan (`boot_plan`) is a replay or runs eagerly for one
+stated reason: "per_op" (the per-op path dispatches op by op, as the JAX
+package's does; it drops the graphs and their pinned planes, so its own
+plane bound holds), "mesh", "key_budget" (the keys come through the key
+store's LRU), "dropped_group" (under the plane bound the signature's planes
+cannot stay pinned beside the others': NativeBootstrapper.graph_plan), or on
+the CPU "cpu". `last_bootstraps` holds the last request's count of each; a
+planned replay that does not happen raises. The batch path replays the same
+single-ciphertext graph row by row.
 
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
@@ -219,6 +237,17 @@ def lru_key_copies(seq, n_slots):
     return copies
 
 
+def boot_window_plan(windows, verdict, path, key_budget=False, mesh=False):
+    """[(window index, signature, None or why it runs eagerly)] of a
+    request's native boot windows ([(window index, (rows, scale, target
+    level))]): "per_op" on that path, else "mesh" over a mesh, else
+    "key_budget" under a galois-key budget, else the plane bound's verdict
+    (NativeBootstrapper.graph_plan: None, or "dropped_group")."""
+    why = ("per_op" if path == "per_op" else "mesh" if mesh
+           else "key_budget" if key_budget else None)
+    return [(wi, sig, why or verdict[sig[:2]]) for wi, sig in windows]
+
+
 class HEVMExecutor:
     # Galois keys beyond this fraction of the card's memory stay in host RAM
     # behind a device LRU (crypto/keys.GaloisStore).
@@ -262,6 +291,9 @@ class HEVMExecutor:
         self._segprof = False
         self.seg_profile = None
         self.capture_stats = None
+        self._seg_pool = None   # the memory pool of the single-request segment graphs
+        self._boot_dep = None   # what the native bootstrap graphs were captured over
+        self.last_bootstraps = None   # the last request's: replayed, eager by reason
         self.bootstrap_stats = None     # warm_bootstraps: signatures and planes
         self.replays = 0        # graph replays, over all requests
         # NTT calls the replayed graphs ran, over all requests (what each
@@ -300,6 +332,7 @@ class HEVMExecutor:
         self.plain_meta = [None] * program.num_ptxt  # (nl, scale)
         self._pt_cid = [None] * program.num_ptxt     # register -> dedup id
         self._seg_plan = None
+        self._boot_win = {}                          # _boot_windows, by argument metadata
 
     @classmethod
     def plan_only(cls, scheme, program, constants):
@@ -364,6 +397,34 @@ class HEVMExecutor:
         """The distinct bootstrap signatures of _boot_sequence, in order."""
         return list(dict.fromkeys(self._boot_sequence()))
 
+    def _boot_windows(self, arg_meta=None):
+        """[(window index, (input rows, scale, target level))] of the
+        segment plan's boot windows, by the metadata walk from arg_meta
+        (default: the compiled arguments), walked once per arg_meta."""
+        arg_meta = tuple(tuple(m) for m in (arg_meta or self._arg_meta()))
+        out = self._boot_win.get(arg_meta)
+        if out is None:
+            meta = dict(enumerate(arg_meta))
+            out = self._boot_win[arg_meta] = []
+            for wi, info in enumerate(self._segment_plan()):
+                for op in info["ops"]:
+                    if op.opcode == OP_BOOTSTRAP:
+                        out.append((wi, meta[op.lhs] + (op.rhs,)))
+                    self._meta_step(op, meta)
+        return out
+
+    def boot_plan(self, path="segment", arg_meta=None):
+        """[(window index, signature, None or why it runs eagerly)] of the
+        native boot windows of a request on `path` (boot_window_plan, module
+        docstring): None where the window replays its signature's CUDA
+        graph on the card. Empty without native bootstraps."""
+        bs = self.bootstrapper
+        if not isinstance(bs, NativeBootstrapper):
+            return []
+        windows = self._boot_windows(arg_meta)
+        return boot_window_plan(windows, bs.graph_plan([sig[:2] for _, sig in windows]), path,
+                                self.s.keys.galois.budget is not None, self._mesh is not None)
+
     def _plan_bootstrap_planes(self, cid_info, cid_qp):
         """Under a memory limit (_hbm_limit), bound the native
         bootstrapper's cached diagonals and constants, planned over the
@@ -415,7 +476,13 @@ class HEVMExecutor:
         """Before a request on `path` ("per_op" or "segment"): the
         plaintext LRU's bound and the native bootstrapper's plane bound of
         the path (_plan_bootstrap_planes; `plane_bound` False lifts the
-        latter); a lower bound drops what passes it now."""
+        latter); a lower bound drops what passes it now. The per-op path
+        first drops the native bootstrap's graphs, which releases their
+        pinned planes to its bound (the next segment request captures them
+        again)."""
+        if path == "per_op" and isinstance(self.bootstrapper, NativeBootstrapper):
+            self.bootstrapper.drop_graphs()
+            self._boot_dep = None
         if self._path_budgets is None:
             return
         self._lru_budget, planes = self._path_budgets[path]
@@ -464,6 +531,65 @@ class HEVMExecutor:
                 bs.capture(nl, sc, target, batch)
         return len(bs._graphs)
 
+    def precompile_bootstraps(self, arg_meta=None):
+        """Capture, on the card, the native bootstrap's CUDA graph of every
+        signature the segment path's plan replays (boot_plan), after the
+        segment graphs (precompile_segments; HEVM.load does both). Returns
+        the number of graphs: 0 on the CPU and without native
+        bootstraps."""
+        arg_meta = arg_meta or self._arg_meta()
+        self._graphs(arg_meta)
+        self._boot_graphs(arg_meta)
+        bs = self.bootstrapper
+        return len(bs._graphs) if isinstance(bs, NativeBootstrapper) else 0
+
+    def _boot_graphs(self, arg_meta):
+        """Before a segment request: its boot windows' plan (boot_plan) as
+        {window index: None (a replay) or why it runs eagerly}. On the card
+        the graphs the plan replays are made: captured after the segment
+        graphs into their pool (the first time, and again when the keys or
+        the segment graphs changed, or after the per-op path dropped them;
+        a signature no bootstrap has run yet is warmed first), the others
+        dropped. capture_stats["boot"] gets their count, seconds and pool
+        bytes. Raises if a capture fails."""
+        bs = self.bootstrapper
+        if not isinstance(bs, NativeBootstrapper):
+            return {}
+        if self.s.device.type == "cuda":
+            for nl, sc, target in dict.fromkeys(sig for _, sig in self._boot_windows(arg_meta)):
+                if (nl, sc) not in bs._sig_planes and bs.capture_blocker() is None:
+                    bs.warm(nl, sc, target)
+        plan = self.boot_plan("segment", arg_meta)
+        if self.s.device.type != "cuda":
+            return {wi: why or "cpu" for wi, _, why in plan}
+        if self._seg_pool is None:
+            self._seg_pool = torch.cuda.graph_pool_handle()
+        want = list(dict.fromkeys(sig for _, sig, why in plan if why is None))
+        if (self._boot_dep != ("pool", self._seg_pool) or set(bs._graphs) - set(want)
+                or not all(map(bs._current, bs._graphs.values()))):
+            bs.drop_graphs()
+            if self.capture_stats is not None:
+                self.capture_stats.pop("boot", None)
+        self._boot_dep = ("pool", self._seg_pool)
+        missing = [sig for sig in want if sig not in bs._graphs]
+        if missing:
+            recs = [bs.capture(*sig, pool=self._seg_pool) for sig in missing]
+            torch.cuda.synchronize(self.s.device)
+            if self.capture_stats is None:
+                self.capture_stats = {}
+            stats = self.capture_stats.setdefault("boot", dict(
+                graphs=0, signatures=[], warmup_s=0.0, capture_s=0.0, instantiate_s=0.0,
+                pool_bytes=0, ntt_in_graphs=dict.fromkeys(ntt_kernel.RECORDED, 0)))
+            stats["graphs"] = len(bs._graphs)
+            stats["signatures"] = [list(sig) for sig in bs._graphs]
+            for rec in recs:
+                for k in ("warmup_s", "capture_s", "instantiate_s", "pool_bytes"):
+                    stats[k] += rec[k]
+                for k, v in rec["ntt"].items():
+                    stats["ntt_in_graphs"][k] += v
+            stats["windows"] = sum(why is None for _, _, why in plan)
+        return {wi: why for wi, _, why in plan}
+
     # ------------------------------------------------------------ preprocess
     def preprocess(self):
         """Pre-encode all plaintexts offline (SEAL_HEVM.cpp:242-267):
@@ -472,8 +598,11 @@ class HEVMExecutor:
         the plaintext budget they stay resident as NTT-domain planes, device
         NTTs batched per level; over it (module docstring) each unique
         payload becomes one compact record of the device pool."""
-        # the graphs read the plaintexts replaced here
+        # the graphs read the plaintexts replaced here (and the native
+        # bootstrap's are planned again below)
         self._captured = self._captured_batch = None
+        if isinstance(self.bootstrapper, NativeBootstrapper):
+            self.bootstrapper.drop_graphs()
         enc = self.s.encoder
         ctx = self.s.ctx
         dev = self.s.device
@@ -1167,6 +1296,8 @@ class HEVMExecutor:
         graph_out = {}        # register -> static output of an earlier graph
         stream = torch.cuda.Stream(dev)
         pool = torch.cuda.graph_pool_handle()
+        if batch is None:
+            self._seg_pool = pool
         graphs = {}
         decode_rows = []      # rows each graph decodes
         for wi, info in enumerate(plan):
@@ -1289,10 +1420,18 @@ class HEVMExecutor:
         Returns copies of the outputs, since the next replay overwrites a
         graph's outputs. batch=B: every register holds B ciphertexts, and
         the batch graphs replay; boot(data, nl, scale, target) -> (data,
-        (nl2, scale)): a boot window's refresh, by default `_bootstrap`."""
+        (nl2, scale)): a boot window's refresh, by default `_bootstrap`
+        (over a mesh the caller's). A native boot window replays its
+        signature's graph where the plan says so (_boot_graphs) and raises
+        if it does not; `last_bootstraps` counts the replays and the eager
+        bootstraps by reason."""
         self._use_path("segment")
         plan = self._segment_plan()
-        graphs = self._graphs([(nl, sc) for _, nl, sc in arg_cts], batch)
+        arg_meta = [(nl, sc) for _, nl, sc in arg_cts]
+        graphs = self._graphs(arg_meta, batch)
+        boot_why = self._boot_graphs(arg_meta)
+        bs = self.bootstrapper
+        counts = self.last_bootstraps = dict(replayed=0, eager={})
         arena = self._key_arena()
         ciphers, meta = {}, {}
         for i, (data, nl, scale) in enumerate(arg_cts):
@@ -1307,9 +1446,13 @@ class HEVMExecutor:
             if info["kind"] == "boot":
                 op = info["ops"][0]
                 nl, sc = meta[op.lhs]
+                calls, replays = getattr(bs, "calls", 0), getattr(bs, "replays", 0)
                 ciphers[op.dst], meta[op.dst] = (
                     boot(ciphers[op.lhs], nl, sc, op.rhs) if boot is not None
                     else self._bootstrap(ciphers[op.lhs], nl, sc, op.rhs, batch))
+                if wi in boot_why:
+                    self._count_boots(counts, boot_why[wi], bs.calls - calls,
+                                      bs.replays - replays)
                 kind = "boot"
             elif rec is None and self._graph_window(info):
                 self._seg_body(wi, info, ciphers, meta)     # the CPU
@@ -1340,6 +1483,18 @@ class HEVMExecutor:
         self.seg_profile = prof
         return ([ciphers[r].clone() for r in self.res_dst],
                 [meta[r] for r in self.res_dst])
+
+    @staticmethod
+    def _count_boots(counts, why, calls, replays):
+        """Add a boot window's bootstraps to a request's counts: the
+        replays, and the eager ones under `why`; a window planned as a
+        replay (why None) that ran eagerly raises: nothing falls back."""
+        counts["replayed"] += replays
+        if calls > replays:
+            if why is None:
+                raise RuntimeError("a native boot window planned as a CUDA graph replay ran "
+                                   "eagerly")
+            counts["eager"][why] = counts["eager"].get(why, 0) + calls - replays
 
     def _bootstrap(self, data, nl, sc, target, batch):
         """A boot window: one bootstrap, or one refresh of a batch (the
@@ -1478,7 +1633,12 @@ class HEVMExecutor:
         for i, (data, nl, scale) in enumerate(arg_cts):
             ciphers[i] = data
             meta[i] = (nl, scale)
+        bs = self.bootstrapper
+        calls = getattr(bs, "calls", 0)
         outs = self._exec_stream(self.ops, ciphers, meta, self.res_dst)
+        self.last_bootstraps = dict(replayed=0, eager={})
+        if isinstance(bs, NativeBootstrapper):
+            self._count_boots(self.last_bootstraps, "per_op", bs.calls - calls, 0)
         return outs, [meta[r] for r in self.res_dst]
 
     def decrypt_outputs(self):

@@ -32,7 +32,11 @@ It makes no key and encodes nothing:
   less 7.41 GB of keys and 9.36 GB of planes, NVIDIA H100 80GB HBM3), by the
   key switch's rows (top ciphertext rows plus the special primes);
 * the native bootstrap's working set, from the deep tpu_n15b program
-  (PERF.md: its request peak less its keys and diagonals).
+  (PERF.md: its request peak less its keys and diagonals);
+* which boot windows the segment path replays as CUDA graphs under its
+  bound (the signatures whose planes stay pinned) and why each of the rest
+  runs eagerly, the same under a galois-key budget and per op
+  (boot_graph_plans).
 
 The constants (.cst) decide which plaintexts are payload-identical: --cst
 names the trace, by default traced/resnet_torch/_hecate_ResNet.cst, which
@@ -40,6 +44,7 @@ the port's tracer writes when it is missing (models/cnn_he.trace_resnet,
 about 5 s and 483 MB).
 """
 
+import collections
 import json
 import os
 import sys
@@ -55,7 +60,7 @@ from dacapo_tpu_torch.crypto.bootstrap_native import (        # noqa: E402
     BootstrapConfig, NativeBootstrapper, sized_for_secret)
 from dacapo_tpu_torch.crypto.params import PROFILES           # noqa: E402
 from dacapo_tpu_torch.crypto.scheme import Scheme             # noqa: E402
-from dacapo_tpu_torch.vm.executor import HEVMExecutor         # noqa: E402
+from dacapo_tpu_torch.vm.executor import HEVMExecutor, boot_window_plan  # noqa: E402
 from dacapo_tpu_torch.vm.hevm import HEVMProgram, OP_BOOTSTRAP  # noqa: E402
 
 ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "resnet_dacapo40_tpu_n15b")
@@ -148,6 +153,13 @@ class _ShapeEvaluator:
         return self._ct(nl, (len(shifts),))
 
 
+class _Keys(dict):
+    """The galois keys a shape-only bootstrap asked for (step -> None),
+    with the key store's attributes a graph records."""
+    generation = 0
+    budget = None
+
+
 class _ShapeBootstrapper(NativeBootstrapper):
     """NativeBootstrapper.bootstrap over shape-only data: the scale walk and
     every cache key are the real ones; encodes give meta planes and the
@@ -160,16 +172,18 @@ class _ShapeBootstrapper(NativeBootstrapper):
         return self.ev._ct(self.s.ctx.config.num_q)
 
 
-def dry_bootstraps(profile, sigs, bs_config, config=None, budget=None, sequence=None):
+def dry_bootstraps(profile, sigs, bs_config, config=None, budget=None, sequence=None,
+                   bootstrapper=None):
     """Run the native bootstrap (BootstrapConfig bs_config) of each
     signature on shapes alone, under a plane budget planned over `sequence`
-    (NativeBootstrapper.set_plane_budget) when `budget` is given. Returns
-    (NativeBootstrapper.cached_planes() after each signature, with the
-    evictions and re-encoded planes so far, the galois steps the bootstraps
-    asked for, whether they asked for the conjugation key)."""
+    (NativeBootstrapper.set_plane_budget) when `budget` or `sequence` is
+    given. Returns (NativeBootstrapper.cached_planes() after each
+    signature, with the evictions and re-encoded planes so far, the galois
+    steps the bootstraps asked for, whether they asked for the conjugation
+    key); bootstrapper: a list that gets the bootstrapper."""
     ctx = Scheme(profile, config=config, device="cpu").ctx
     steps, conj = set(), []
-    keys = SimpleNamespace(rlk=None, conj=None, galois={})
+    keys = SimpleNamespace(rlk=None, conj=None, galois=_Keys())
 
     def ensure_galois(rot_steps):
         half = ctx.n // 2
@@ -185,7 +199,9 @@ def dry_bootstraps(profile, sigs, bs_config, config=None, budget=None, sequence=
                             keys=keys, ensure_galois=ensure_galois,
                             keygen=SimpleNamespace(ensure_conj=ensure_conj))
     bs = _ShapeBootstrapper(shell, bs_config)
-    if budget is not None:
+    if bootstrapper is not None:
+        bootstrapper.append(bs)
+    if budget is not None or sequence is not None:
         bs.set_plane_budget(budget, sequence)
     after = []
     for nl, sc, target in sigs:
@@ -258,7 +274,51 @@ def plan(prog, constants, profile, hbm):
         plaintext_budget=pt_budget, plaintexts_stream=streams, pool_bytes=pool,
         top_ciphertext_rows=top_rows, graph_pool_estimate_bytes=int(graph_pool),
         bootstrap_working_set_bytes=int(boot_work), deep_diagonal_bytes=deep,
-        unbounded_plane_bytes=unbounded, eager_plaintext_bytes=eager, paths=paths)
+        unbounded_plane_bytes=unbounded, eager_plaintext_bytes=eager, paths=paths,
+        boot_graphs=boot_graph_plans(prog, profile, budgets["segment"][1], constants))
+
+
+def boot_graph_plans(prog, profile, segment_bound, constants=None):
+    """Which of the program's native boot windows the segment path replays
+    as CUDA graphs and why each of the rest runs eagerly
+    (vm/executor.py boot_window_plan over NativeBootstrapper.graph_plan,
+    after a load's warm-up of each signature on shapes alone): {case:
+    [(window index, signature index, None or the reason)]} for the cases
+    "unbounded", "segment_bound" (the plane bound `segment_bound`),
+    "key_budget" and "per_op"."""
+    ex, _, _ = executor_shell(prog, profile, constants)
+    cfg = ex.s.ctx.config
+    sigs = ex._boot_signatures()
+    radix = 7 if cfg.n_slots >= (1 << 14) else 5              # the runner's rule
+    bs_config = sized_for_secret(BootstrapConfig(radix=radix), cfg.secret_h, cfg.n)
+    seq = [(nl, sc) for nl, sc, _ in ex._boot_sequence()]
+    windows = ex._boot_windows()
+    index = {sig: i for i, sig in enumerate(sigs)}
+    out = {}
+    for case, budget in (("unbounded", None), ("segment_bound", segment_bound)):
+        held = []
+        dry_bootstraps(profile, sigs, bs_config, budget=budget, sequence=seq,
+                       bootstrapper=held)
+        verdict = held[0].graph_plan()
+        out[case] = boot_window_plan(windows, verdict, "segment")
+        if budget is not None:
+            out["key_budget"] = boot_window_plan(windows, verdict, "segment", key_budget=True)
+            out["per_op"] = boot_window_plan(windows, verdict, "per_op")
+            out["pinned_bytes"] = _pinned_bytes(held[0], verdict)
+    return {case: [(wi, index[sig], why) for wi, sig, why in plan] if case != "pinned_bytes"
+            else plan for case, plan in out.items()}
+
+
+def _pinned_bytes(bs, verdict):
+    """(bytes the captured signatures' planes pin, the most any other
+    signature reads besides them): what graph_plan holds under the bound."""
+    pinned = {}
+    for sig, why in verdict.items():
+        if why is None:
+            pinned.update(bs._sig_planes[sig])
+    rest = [sum(p[2] for e, p in bs._sig_planes[sig].items() if e not in pinned)
+            for sig, why in verdict.items() if why is not None]
+    return sum(p[2] for p in pinned.values()), max(rest, default=0)
 
 
 def plan_deep_diagonals():
@@ -328,6 +388,14 @@ def main(argv):
               f"over the request's {r['bootstraps']} bootstraps); predicted device bytes "
               f"{p['predicted_device_bytes']} ({gb(p['predicted_device_bytes'])}) of "
               f"{r['hbm_bytes']}: headroom {p['headroom']:.3f}")
+    g = r["boot_graphs"]
+    for case in ("unbounded", "segment_bound", "key_budget", "per_op"):
+        eager = collections.Counter(why for _, _, why in g[case] if why is not None)
+        print(f"boot windows, {case}: {sum(why is None for _, _, why in g[case])} replay a "
+              f"CUDA graph (signatures {sorted({i for _, i, why in g[case] if why is None})})"
+              f", eager {dict(eager)}")
+    print(f"the segment bound's pinned planes {gb(g['pinned_bytes'][0])}, the most another "
+          f"signature reads besides them {gb(g['pinned_bytes'][1])}")
 
 
 if __name__ == "__main__":
