@@ -25,7 +25,10 @@
    output ciphertext against the JAX package's digest, and that the plain
    NTT never ran; then runs one ciphertext through executor.run_encrypted
    with jit="segment" and jit=False and requires bit-equal outputs, and
-   times three requests per-op (jit=False) for the other median;
+   times three requests per-op (jit=False) for the other median; at the
+   phase's end the whole-program path (jit=True: one window, one graph,
+   precompile_whole), the same ciphertext byte-equal to the segment
+   request's, one graph launch, three timed requests held to the RMS bar;
 6. profiles one more segmented request (device time by kernel, device
    kernels, kernels per graph launch, host launch calls, graph replays,
    idle share) with the NTT counts set to 0 just before it: both kernel
@@ -35,17 +38,20 @@
    must equal the wrapper's; and times the parts of load, graph capture
    included;
 7. ResNet-20 `dacapo 40` (tpu_n15) with the trained checkpoint, full width
-   and depth: traces it with the port and checks its .cst (and its .eir.json
-   without source locations) against the JAX package's digests, loads the
+   and depth, on an HEVM(jit=True) (the oracle bootstrap keeps it on the
+   segment path, as in the JAX package: each request must say
+   ("segment", "oracle")): traces it with the port and checks its .cst (and
+   its .eir.json without source locations) against the JAX package's
+   digests, loads the
    committed .hevm on the MLP's keyset (only the missing rotation keys are
    generated; the load captures the device oracle's graphs, one per cache
    key, and the segment graphs), times keygen / galois keygen / pre-encode /
    oracle capture / capture and reports the plaintext and key bytes and the
-   graphs' count; serves two timed segmented requests, checks the RMS of
-   the 10 logits of each against the torch model (bar 9.5152e-4, the
+   graphs' count; serves TIMED_REQUESTS timed segmented requests, checks the
+   RMS of the 10 logits of each against the torch model (bar 9.5152e-4, the
    reference's), that 19 bootstraps ran in each, each one a replay of an
    oracle graph captured at load, and that the plain NTT never ran; reruns
-   the second request per-op (jit=False, which replays the same oracle
+   the last timed request per-op (jit=False, which replays the same oracle
    graphs) with both generators restored (the key generator's, which
    encrypts the input, and the oracle's on the card) and requires bit-equal
    output ciphertexts; reports peak device memory, times one request's
@@ -55,21 +61,22 @@
    modes must have run, counted on the device as in 6; then the batch part
    on the same HEVM (keys and plaintexts shared): precompile_batch(4)
    captures the batch graphs (the oracle's, one per cache key and B, and
-   the segments'), two timed batch requests of the test images of seeds
+   the segments'), TIMED_REQUESTS timed batch requests of the test images of seeds
    100-103 (setInputBatch, runBatch), every row's RMS held to the same bar,
    19 batched oracle graph replays and no plain NTT call in each, and one
    profiled batch request; seconds a batch and a ciphertext beside the B=1
    median, capture seconds and peak device memory; then, the resident VM
    freed, the streaming part: a second HEVM("tpu_n15") on the same keyset
    and the same traced files under a 10 GiB plan (DACAPO_TPU_HBM_BYTES =
-   10 * 2^30) must stream its plaintexts (the compact pool) and its galois
+   10 * 2^30), also jit=True (each request ("segment", "streaming")), must
+   stream its plaintexts (the compact pool) and its galois
    keys (key budget 5,905,580,032 B: the load pins their host copies and
    makes the key arena); its load captures the segment graphs, each
    decoding its plaintexts in-graph and reading its keys from its arena
    slots, and one oracle graph; one timed request held to the same bar,
    19 oracle replays, no plain NTT and no capture, all 96 graphs
    replayed, the planned key copies and no LRU upload, device key bytes
-   (arena and LRU) within the budget; the resident VM's second request
+   (arena and LRU) within the budget; the resident VM's timed request
    (argument and oracle draws restored) gives the resident VM's output
    ciphertexts on the segment path and per-op through the LRU; one request
    profiled (idle share, the key copies' device time), and the decode of
@@ -97,18 +104,35 @@
    replays both) and one profiled (the NTT calls in its trace
    at most those the wrapper and the replayed graphs' records count); (b) on the
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
-   and nl=2 to level 14 (RMS <= 1e-5), timed twice, one bootstrap
+   and nl=2 to level 14 (RMS <= 1e-5), timed (TIMED_REQUESTS), one bootstrap
    profiled (idle share, kernels, NTT calls of each mode on the device);
    then its signature captured as a CUDA graph (warm-up, recording and
-   instantiation seconds, pool bytes), two replays timed, byte-equal to
+   instantiation seconds, pool bytes), TIMED_REQUESTS replays timed, byte-equal to
    the eager output, one replay profiled (idle share, NTT calls);
    (d) the same HEVM loads the program again under the JAX package's 16
    GiB plan (DACAPO_TPU_HBM_BYTES = 2^34): its galois keys pass the key
    budget, so it loads on the segment path with a key arena (the native
    bootstraps read theirs through the LRU from pinned host memory) and
-   serves the request ciphertext of (c) again: RMS, 2 bootstraps
-   (timed; eager, "key_budget"), every graph replayed, the planned key copies, device key bytes
-   within the budget, outputs bit-equal to (c)'s; one request profiled;
+   serves the request ciphertext of (c) again with jit=True, which takes the
+   segment path for the galois-key budget (("segment", "key_budget")): RMS,
+   2 bootstraps (timed; eager, "key_budget"), every graph replayed, the
+   planned key copies, device key bytes within the budget, outputs
+   bit-equal to (c)'s; one request profiled; the next request's bootstrap
+   signature keeps its planes across requests (no re-encode at its start),
+   and a request allocates no more than where they were encoded again
+   (NATIVE_PLAN_REQUEST_PEAK_BYTES);
+   (e) between (c) and (d), the whole-program path: the same HEVM set to
+   jit=True loads the program again, which captures ONE CUDA graph of every
+   window with both native bootstraps recorded inline (warm-up, recording
+   and instantiation seconds, nodes, pool bytes), and serves (c)'s request
+   again with the key generator's state restored: ("whole", None), 2
+   bootstraps counted as replays inside the graph, one graph launch, output
+   ciphertexts byte-equal to (c)'s segment request (and so to its per-op
+   rerun), RMS; a profiled request (graph launches, idle share, NTT calls
+   on the device); (f) in the native ResNet phase (13), before its server
+   HEVM(jit=True), which holds no secret key, loads ResNet, it loads the
+   deep program (its whole-program graph) and serves (e)'s argument blob:
+   the same path and counts, the result blob byte-equal to the full VM's;
 10. the basic phase: the five non-MLP rows of the basic list
     (SobelFilter, HarrisCornerDetection, LinearRegression, Multivariate on
     tpu_n14, PolynomialRegression on tpu_n15, pars/40, the inputs of
@@ -119,7 +143,10 @@
     server HEVM that holds no secret key (three timed requests, one
     profiled: NTT calls on the device), its results shipped back and
     decrypted by the client (RMS against the numpy golden <= 2e-5), and the
-    full HEVM's outputs on the same blobs bit-equal to the server's; then
+    full HEVM's outputs on the same blobs bit-equal to the server's; a
+    second server HEVM(jit=True) loads the row (one whole-program graph)
+    and serves the same blobs three times, timed, one graph launch each,
+    its result blobs byte-equal to the segment server's; then
     Multivariate as a batch of 8 input sets on its full HEVM (batch graphs
     captured, three timed batch requests and a profiled one): every row's
     output ciphertexts byte-equal to a single request's on the same argument
@@ -161,7 +188,8 @@
     segment graphs and then one CUDA graph per bootstrap signature the
     plane bound leaves room to pin; no oracle graph), a client HEVM
     encrypts the golden input and ships it; the server runs it on the
-    segment path (timed, its bootstraps timed apart: every boot window a
+    segment path (a jit=True request, ("segment", "streaming"): its
+    plaintexts stream; timed, its bootstraps timed apart: every boot window a
     graph replay but those eager for a stated reason, EAGER_REASONS, as
     the executor's plan says) and per-op (jit=False: every bootstrap eager,
     "per_op"): each
@@ -182,6 +210,12 @@
     launches_by_path, and per ciphertext; the batch shapes' times), then
     the card's name and power limit, then {"ok": true, "device": {...}} as
     the last line.
+
+The segment graphs and the native bootstrap's graphs record without an
+eager warm-up where their device caches are full (a cache that would fill
+under capture stops the recording, and that window warms up first); each
+phase's time is logged as "[time] <phase>", the native phase's parts as
+"[time]   <part>".
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Without CUDA, or outside a checkout of the repository, it exits 2.
@@ -222,11 +256,12 @@ RMS_BAR_NATIVE_BOOT = 1e-5     # the standalone tpu_n15b bootstrap (JAX on the T
 RMS_BAR_NATIVE_DEEP = 1e-4     # the deep DaCapo program on tpu_n15b
 RMS_BAR_BASIC = 2e-5           # the basic rows (JAX on the TPU: 1.05e-7 to 6.49e-6)
 N_TIMED = 25
-# timed requests of the ResNet B=1 and B=4 paths (two since the mesh phase
-# joined) and of the standalone native bootstrap; the deep native VM, its 16
-# GiB plan and the 10 GiB streaming ResNet VM time one each since the native
-# ResNet phase joined (every check of theirs runs on that request), to keep
-# the run inside its time limit
+# timed requests of the ResNet B=1 and B=4 paths, of the standalone native
+# bootstrap (eager and replayed) and of the deep program's whole-program path
+# (the second replays the same graphs: state carried between requests shows);
+# the deep native VM, its 16 GiB plan and the 10 GiB streaming ResNet VM time
+# one each since the native ResNet phase joined, to keep the run inside its
+# time limit
 TIMED_REQUESTS = 2
 TIMED_REQUESTS_SHORT = 1
 RESNET_BATCH = 4               # ciphertexts a ResNet batch request carries
@@ -241,6 +276,11 @@ STREAM_HBM_BYTES = 10 << 30
 # the deep tpu_n15b program's 161 galois keys and conjugation key (78.6 MB
 # each) pass its 9,448,928,051 B key budget
 NATIVE_PLAN_BYTES = 16 << 30
+# the most a request of that plan may allocate: its peak where every request
+# dropped the next bootstrap signature's plane group at its start and encoded
+# it again (scripts/native_budget_peak.py, on an H100 80GB HBM3); keeping the
+# group across requests must not raise it
+NATIVE_PLAN_REQUEST_PEAK_BYTES = 19_167_479_808
 # Multivariate at tpu_n14: 12 % of 64 MiB is below its 8,257,536 B of
 # resident plaintexts, and 55 % of it below its twelve 10.5 MB keys
 BASIC_PLAN_BYTES = 64 << 20
@@ -480,17 +520,20 @@ def trace_summary(prof):
     that carry the CUPTI correlation id of a graph launch call, as every
     kernel node of a launched graph does; and the count of every name among
     the device ops of those launches."""
+    from torch.autograd import DeviceType
     from torch.autograd.profiler_util import _filter_name
     events = prof.profiler.kineto_results.events()
     rows = {}
     launch_ids, by_corr = [], collections.defaultdict(list)
+    hidden = bool(events) and hasattr(events[0], "is_hidden_event")
     for e in events:
         name = e.name()
         # the events key_averages() leaves out: bookkeeping names, and the
         # hidden ones (records of kernels outside the profiled window)
-        if _filter_name(name) or getattr(e, "is_hidden_event", lambda: False)():
+        if _filter_name(name) or (hidden and e.is_hidden_event()):
             continue
-        cuda = str(e.device_type()).endswith("CUDA")
+        # the enum compared as it is (its str() cost a third of the walk)
+        cuda = e.device_type() == DeviceType.CUDA
         r = rows.get((name, cuda))
         if r is None:
             r = rows[(name, cuda)] = [0, 0]
@@ -510,8 +553,12 @@ def trace_summary(prof):
 
 
 def graph_replays(executor):
-    """Graph replays so far: the segment graphs' and the device oracle's."""
-    return executor.replays + getattr(getattr(executor, "bootstrapper", None), "replays", 0)
+    """Graph launches so far: the executor's (segment and whole-program
+    graphs) and the bootstrapper's (the device oracle's, the native
+    bootstrap's own graphs; not the native bootstraps replayed inside the
+    whole-program graph, NativeBootstrapper.inlined)."""
+    bs = getattr(executor, "bootstrapper", None)
+    return executor.replays + getattr(bs, "replays", 0) - getattr(bs, "inlined", 0)
 
 
 def graph_ntt(executor):
@@ -821,6 +868,45 @@ def serve_mlp(np, torch, HEVM, mlp, nk, ntt_mod, params, keydir, files):
         raise AssertionError(f"a kernel never ran on the main path: {launches}")
     if any(plain_calls.values()):
         raise AssertionError(f"the plain NTT ran on the main path: {plain_calls}")
+
+    # the whole-program path (jit=True): the MLP is one window, so its one
+    # graph records what its segment graph does; captured before the first
+    # request (the segment graph dropped), then the ciphertext of the
+    # segment / per-op comparison again, byte-equal, and three timed requests
+    vm.jit = True
+    t0 = time.perf_counter()
+    ex.precompile_whole()
+    torch.cuda.synchronize()
+    wcap = dict(ex.capture_stats["whole"], capture_total_s=time.perf_counter() - t0)
+    replays0 = ex.replays
+    whole, _ = ex.run_encrypted(args, jit=True)
+    torch.cuda.synchronize()
+    w = phases["whole"] = dict(capture=wcap, path=list(ex.last_path),
+                               graph_launches=ex.replays - replays0,
+                               equals_segment=all(torch.equal(a, b) for a, b in zip(whole, seg)))
+    times = []
+    for seed in (0, 1, 2):
+        t0 = time.perf_counter()
+        vm.setInput(0, mlp.make_input(seed))
+        vm.run()
+        out = vm.getOutput()[0][:10]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rms = float(((out - mlp.mlp_plain(mlp.make_input(seed), weights)) ** 2).mean() ** 0.5)
+        if not rms <= RMS_BAR:
+            raise AssertionError(f"MLP rms {rms} > {RMS_BAR} on the whole-program path")
+    vm.jit = "auto"
+    w.update(request_s=times, request_median_s=statistics.median(times))
+    log(f"[mlp] whole-program graph ({wcap['windows']} window, {wcap['nodes']} nodes) captured "
+        f"in {wcap['capture_total_s']:.3f} s (warm-up {wcap['warmup_s']:.3f}, recording "
+        f"{wcap['capture_s']:.3f}, instantiation {wcap['instantiate_s']:.3f}); path "
+        f"{w['path']}, {w['graph_launches']} graph launch, output ciphertexts byte-equal to the "
+        f"segment request's: {w['equals_segment']}; requests "
+        + ", ".join(f"{t:.4f}" for t in times)
+        + f" s (median {w['request_median_s']:.4f}; segment {medians['segment']:.4f})")
+    if (w["path"] != ["whole", None] or w["graph_launches"] != 1 or not w["equals_segment"]
+            or wcap["windows"] != 1):
+        raise AssertionError(f"the MLP's whole-program path: {w}")
     return phases, launches, rms_all
 
 
@@ -837,8 +923,8 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     width and depth: the port traces it (its .cst must equal the JAX
     package's byte for byte), HEVM loads the committed .hevm on the keyset
     the MLP phase wrote (only the missing rotation keys are generated) and
-    captures the graphs, two timed segmented requests are held to the
-    reference's RMS bar, the second is rerun per-op with the same randomness
+    captures the graphs, TIMED_REQUESTS timed segmented requests are held to
+    the reference's RMS bar, the last is rerun per-op with the same randomness
     and must give the same ciphertexts, and two more requests are timed by
     window and profiled."""
     from dacapo_tpu_torch.crypto.bootstrap import EmulatedBootstrapper
@@ -874,7 +960,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    vm = HEVM("tpu_n15", keyset_dir=keydir)
+    vm = HEVM("tpu_n15", keyset_dir=keydir, jit=True)
     torch.cuda.synchronize()
     out["keyset_load_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -912,7 +998,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         f"during load {out['peak_load_bytes']} bytes")
 
     # TIMED_REQUESTS timed segmented requests; the state of both generators
-    # before the second one (the key generator's, which encrypts the input,
+    # before the last one (the key generator's, which encrypts the input,
     # and the oracle's on the card) and its outputs are kept for the per-op rerun
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
@@ -930,12 +1016,13 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         r = dict(request_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
                  plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls,
                  oracle_replays=bs.replays - replays0, oracle_graphs=len(bs._graphs),
-                 peak_bytes=torch.cuda.max_memory_allocated())
+                 path=list(ex.last_path), peak_bytes=torch.cuda.max_memory_allocated())
         logits = cnn_he.resnet_postprocess(res[0])
         r["rms"] = float(np.sqrt(np.mean((logits - want) ** 2)))
         r["logits"] = logits.tolist()
         requests.append(r)
-        log(f"[resnet] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
+        log(f"[resnet] request {i} (jit=True: {r['path']}) {r['request_s']:.3f} s: rms "
+            f"{r['rms']:.4e} "
             f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps ({r['oracle_replays']} "
             f"oracle graph replays), NTT launches outside "
             f"graphs {r['eager_ntt_launches']}, plain NTT calls {r['plain_ntt_calls']}, peak "
@@ -949,15 +1036,18 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
                                  f"oracle replays), the program has {expected['bootstraps']}")
         if r["oracle_graphs"] != oracle["graphs"]:
             raise AssertionError("a request captured an oracle graph the load did not")
+        if r["path"] != ["segment", "oracle"]:
+            raise AssertionError(f"a jit=True ResNet request took {r['path']}, not the "
+                                 "segment path of the oracle bootstrap")
         if any(r["plain_ntt_calls"].values()):
             raise AssertionError(f"the plain NTT ran on the ResNet path: {r}")
-        if i == 1:
+        if i == TIMED_REQUESTS - 1:
             kept_state, kept_outs = state, ex._last_outputs[0]
             kept_args = [vm._arg_cts[0]]
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
 
-    # the second request again per-op, with both generators restored: the
+    # the last timed request again per-op, with both generators restored: the
     # per-op path replays the same oracle graphs
     rng.state = kept_state[0]
     bs.gen.set_state(kept_state[1])
@@ -967,13 +1057,13 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     vm.run()
     vm.getOutput()
     torch.cuda.synchronize()
-    vm.jit = "auto"
+    vm.jit = True
     out["per_op_request_s"] = time.perf_counter() - t0
     out["segment_equals_per_op"] = all(
         torch.equal(a, b) for a, b in zip(ex._last_outputs[0], kept_outs))
     log(f"[resnet] request median of {TIMED_REQUESTS} (segment) "
         f"{out['request_median_s']:.3f} s; the "
-        f"second request per-op {out['per_op_request_s']:.3f} s, output ciphertexts "
+        f"last timed request per-op {out['per_op_request_s']:.3f} s, output ciphertexts "
         f"bit-equal to the segment run: {out['segment_equals_per_op']}")
     if not out["segment_equals_per_op"]:
         raise AssertionError("ResNet segment and per-op output ciphertexts differ")
@@ -1022,7 +1112,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         raise AssertionError(f"the plain NTT ran on the ResNet path: {prof['plain_ntt_calls']}")
     out["batch"] = resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod,
                                 out["request_median_s"])
-    # what the streaming part holds its VM to: the second request's argument,
+    # what the streaming part holds its VM to: the timed request's argument,
     # oracle draws and outputs, and the resident VM's numbers
     resident = dict(cst=cst, args=kept_args, oracle_state=kept_state[1], outs=kept_outs,
                     packed=packed, want=want, expected=expected, graphs=cap["graphs"],
@@ -1166,7 +1256,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     is held to the RMS bar, 19 oracle replays, no plain NTT and no
     capture each, every graph window replayed, the planned key copies and
     no LRU upload (no key read outside the arena), the device key bytes
-    (arena and LRU) within the key budget; the resident VM's second request
+    (arena and LRU) within the key budget; the resident VM's timed request
     (argument and oracle draws restored) must give the same ciphertexts on
     the segment path and per-op through the LRU; one request is profiled
     (the staging copies' device time apart), and the decode of every graph
@@ -1182,7 +1272,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     os.environ["DACAPO_TPU_HBM_BYTES"] = str(STREAM_HBM_BYTES)
     try:
         t0 = time.perf_counter()
-        vm = HEVM("tpu_n15", keyset_dir=keydir)
+        vm = HEVM("tpu_n15", keyset_dir=keydir, jit=True)
         torch.cuda.synchronize()
         out["keyset_load_s"] = time.perf_counter() - t0
         shapes = DecodeShapes(vm.scheme.ev)
@@ -1252,12 +1342,13 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
                  oracle_replays=bs.replays - replays0, graph_replays=ex.replays - seg0,
                  key_copies={k: ex.key_staging[k] - staged0[k] for k in staged0},
                  lru_uploads=galois.uploads - uploads0, key_device_peak_bytes=galois.peak_bytes,
-                 peak_bytes=torch.cuda.max_memory_allocated())
+                 path=list(ex.last_path), peak_bytes=torch.cuda.max_memory_allocated())
         logits = cnn_he.resnet_postprocess(res[0])
         r["rms"] = float(np.sqrt(np.mean((logits - want) ** 2)))
         requests.append(r)
         kc = r["key_copies"]
-        log(f"[resnet stream] request {i} (segment) {r['request_s']:.3f} s: rms {r['rms']:.4e} "
+        log(f"[resnet stream] request {i} (jit=True: {r['path']}) {r['request_s']:.3f} s: rms "
+            f"{r['rms']:.4e} "
             f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps ({r['oracle_replays']} "
             f"oracle graph replays), {r['graph_replays']} segment graph replays, NTT launches "
             f"outside graphs {r['eager_ntt_launches']}, plain NTT calls "
@@ -1286,6 +1377,8 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
             raise AssertionError(f"the plain NTT ran on the streaming ResNet path: {r}")
         if ex._captured is not graphs or len(bs._graphs) != out["oracle_graphs"]:
             raise AssertionError("a streaming request captured graphs the load did not")
+        if r["path"] != ["segment", "streaming"]:
+            raise AssertionError(f"a jit=True streaming ResNet request took {r['path']}")
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
     out["key_h2d_bytes_per_request"] = requests[-1]["key_copies"]["host_bytes"]
@@ -1294,7 +1387,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     out["resident_peak_bytes"] = resident["peak_bytes"]
     out["resident_peak_load_bytes"] = resident["peak_load_bytes"]
 
-    # the resident VM's second request, its argument and oracle draws
+    # the resident VM's timed request, its argument and oracle draws
     # restored: the segment path (in-graph decode), then per-op (the LRU)
     for path, jit in (("segment", "auto"), ("per_op", False)):
         bs.gen.set_state(resident["oracle_state"])
@@ -1305,7 +1398,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         out[f"{path}_rerun_s"] = time.perf_counter() - t0
         out[f"{path}_equals_resident"] = all(
             torch.equal(a, b) for a, b in zip(got, resident["outs"]))
-        log(f"[resnet stream] the resident VM's second request, {path} "
+        log(f"[resnet stream] the resident VM's timed request, {path} "
             f"{out[f'{path}_rerun_s']:.3f} s: output ciphertexts bit-equal to the resident "
             f"VM's {out[f'{path}_equals_resident']}")
         if not out[f"{path}_equals_resident"]:
@@ -1493,7 +1586,8 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     want = deep_golden(x, expected["depth"])
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
-    kept = dict(vm=vm, x=x, want=want, graphs=ex.capture_stats["graphs"], requests=[])
+    kept = dict(vm=vm, x=x, want=want, graphs=ex.capture_stats["graphs"], requests=[],
+                request_median_s=None)
     for i in range(TIMED_REQUESTS_SHORT):
         reset_counts(nk, ntt_mod)
         calls0, n_keys0, ntt0 = bs.calls, len(keys.galois), graph_ntt(ex)
@@ -1537,6 +1631,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
             kept_state, kept_outs = state, ex._last_outputs[0]
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
+    kept.update(state=kept_state, seg_outs=kept_outs, request_median_s=out["request_median_s"])
 
     rng.state = kept_state
     vm.jit = False
@@ -1685,6 +1780,159 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     return out, req_launches, (boot_launches, prof_g["ntt_launches"]), kept
 
 
+def serve_native_whole(np, torch, nk, ntt_mod, files, resident):
+    """(e) the deep program on the whole-program path: the resident native VM
+    set to jit=True loads it again (its bootstrapper keeps the planes it
+    encoded), which captures one CUDA graph holding every window and both
+    native bootstraps and no segment graph. The segment request of (c)
+    again, its key generator state restored, through setInput / run /
+    getOutput: the path ("whole", None), 2 bootstraps counted as replays
+    inside the graph, one graph launch, output ciphertexts byte-equal to
+    the segment request's (and so to its per-op rerun's), RMS; a second
+    timed request, one profiled (graph launches, idle share, NTT calls on
+    the device). Returns (results, the profiled request's NTT calls on the
+    device, (the argument blob, the output blob) for the server of (f))."""
+    from dacapo_tpu_torch.runtime.runner import serialize_ct
+    out = {}
+    vm, x, want = resident["vm"], resident["x"], resident["want"]
+    rng = vm.scheme.keygen.rng.bit_generator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vm.jit = True
+    t0 = time.perf_counter()
+    vm.load(*files["Deep"])
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    ex, bs = vm.executor, vm.executor.bootstrapper
+    cap = out["capture"] = ex.capture_stats["whole"]
+    out.update(load_parts_s=vm.load_seconds, path_at_load=list(ex.whole_path()),
+               after_load_bytes=torch.cuda.memory_allocated(),
+               peak_load_bytes=torch.cuda.max_memory_allocated())
+    log(f"[native whole] HEVM(jit=True) load {out['load_s']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in vm.load_seconds.items())
+        + f"): one graph of {cap['windows']} windows and {cap['bootstraps']} bootstraps "
+        f"(signatures {cap['signatures']}), {cap['nodes']} nodes; warm-up "
+        f"{cap['warmup_s']:.3f} s, recording {cap['capture_s']:.3f} s, instantiation "
+        f"{cap['instantiate_s']:.3f} s; pool {cap['pool_bytes']} bytes; NTT calls recorded "
+        f"{cap['ntt_in_graphs']}; {out['after_load_bytes']} bytes allocated, peak "
+        f"{out['peak_load_bytes']}")
+    if ("whole_capture" not in vm.load_seconds or "capture" in vm.load_seconds
+            or ex._captured[0][0] != "whole" or bs._graphs or cap["bootstraps"] != 2):
+        raise AssertionError(f"the deep program's whole-program load: {vm.load_seconds}, "
+                             f"{cap}")
+    requests = []
+    for i in range(TIMED_REQUESTS):
+        if i == 0:
+            rng.state = resident["state"]
+        reset_counts(nk, ntt_mod)
+        before = (bs.calls, bs.replays, bs.inlined, ex.replays, graph_ntt(ex))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vm.setInput(0, x)
+        vm.run()
+        res = vm.getOutput()[0]
+        torch.cuda.synchronize()
+        r = dict(request_s=time.perf_counter() - t0, path=list(ex.last_path),
+                 boots=ex.last_bootstraps, bootstraps=bs.calls - before[0],
+                 bootstrap_replays=bs.replays - before[1], inline=bs.inlined - before[2],
+                 graph_launches=ex.replays - before[3],
+                 ntt_launches={k: nk.LAUNCHES[k] + v - before[4][k]
+                               for k, v in graph_ntt(ex).items()},
+                 plain_ntt_calls=dict(ntt_mod.CALLS),
+                 peak_bytes=torch.cuda.max_memory_allocated())
+        r["rms"] = float(np.sqrt(np.mean((res - want) ** 2)))
+        if i == 0:
+            r["equals_segment"] = all(torch.equal(a, b) for a, b in
+                                      zip(ex._last_outputs[0], resident["seg_outs"]))
+            blobs = (vm.getCtxt(0), serialize_ct(ex._last_outputs[0][0],
+                                                 *ex._last_outputs[1][0]))
+        requests.append(r)
+        log(f"[native whole] request {i} {r['request_s']:.3f} s: path {r['path']}, "
+            f"{r['bootstraps']} bootstraps ({r['boots']}; {r['inline']} replayed inside the "
+            f"graph), {r['graph_launches']} graph launch, NTT calls {r['ntt_launches']}, plain "
+            f"NTT calls {r['plain_ntt_calls']}, rms {r['rms']:.4e}, peak {r['peak_bytes']} "
+            f"bytes" + (f"; output ciphertexts byte-equal to the segment request's (and its "
+                        f"per-op rerun's): {r['equals_segment']}" if i == 0 else ""))
+        if (r["path"] != ["whole", None] or r["boots"] != dict(replayed=2, eager={})
+                or (r["bootstraps"], r["bootstrap_replays"], r["inline"],
+                    r["graph_launches"]) != (2, 2, 2, 1)):
+            raise AssertionError(f"the deep whole-program request: {r}")
+        if res.shape != x.shape or not np.isfinite(res).all() or not r["rms"] <= \
+                RMS_BAR_NATIVE_DEEP:
+            raise AssertionError(f"the deep whole-program request's output: rms {r['rms']}")
+        if any(r["plain_ntt_calls"].values()) or min(r["ntt_launches"].values()) <= 0:
+            raise AssertionError(f"the NTT kernel did not carry the request: {r}")
+        if i == 0 and not r["equals_segment"]:
+            raise AssertionError("the deep whole-program output differs from the segment "
+                                 "request's")
+    out["requests"] = requests
+    out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
+    out["segment_request_median_s"] = resident["request_median_s"]
+
+    def request():
+        vm.setInput(0, x)
+        vm.run()
+
+    prof = out["profiled_request"] = profile_request(torch, request, "native whole", ex, nk,
+                                                     ntt_mod, cpu=False, trace_loss_ok=True)
+    log(f"[native whole] median of {TIMED_REQUESTS} {out['request_median_s']:.3f} s (segment "
+        f"{resident['request_median_s']:.3f} s); profiled: {prof['graph_launch_calls']} graph "
+        f"launch calls, {prof['eager_kernel_launches']} kernel launches outside graphs (the "
+        f"encryption's), device busy {prof['device_busy_s']} s of {prof['wall_s']:.4f} s "
+        f"(idle share {prof['idle_share']}), NTT calls on the device {prof['ntt_launches']}")
+    # the counters' launches; the trace's may miss a record (profile_request)
+    if (prof["replays"] != 1 or prof["graph_launch_calls"] > 1
+            or min(prof["ntt_launches"].values()) <= 0
+            or any(prof["plain_ntt_calls"].values())):
+        raise AssertionError(f"the profiled deep whole-program request: {prof['launch_calls']}, "
+                             f"NTT {prof['ntt_launches']}")
+    out["peak_bytes"] = max([out["peak_load_bytes"]] + [r["peak_bytes"] for r in requests])
+    return out, prof["ntt_launches"], blobs
+
+
+def serve_native_whole_server(torch, server, files, blobs):
+    """(f) the deep program's whole-program path in server mode, on the
+    native ResNet phase's server HEVM(jit=True) (the keyset's public and
+    evaluation half: it holds the deep program's keys too) before it loads
+    ResNet: it loads the deep program (the warm-up of its bootstrap
+    signature, the whole-program graph), receives the argument blob of
+    (e)'s first request and serves it: ("whole", None), 2 inline bootstrap
+    replays, one graph launch, the result blob byte-equal to the full VM's
+    of (e). The executor is released before the server loads ResNet."""
+    arg_blob, want_blob = blobs
+    t0 = time.perf_counter()
+    server.load(*files["Deep"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ex = server.executor
+    bs = ex.bootstrapper
+    out = dict(load_s=t1 - t0, load_parts_s=server.load_seconds,
+               capture=ex.capture_stats.get("whole"))
+    server.setCtxt(0, arg_blob)
+    replays0, inline0 = ex.replays, bs.inlined
+    t0 = time.perf_counter()
+    ret = server.run()
+    torch.cuda.synchronize()
+    out.update(request_s=time.perf_counter() - t0, path=list(ex.last_path),
+               boots=ex.last_bootstraps, graph_launches=ex.replays - replays0,
+               inline=bs.inlined - inline0,
+               equals_full=server.getOutputCtxt(0) == want_blob)
+    log(f"[native whole server] the deep program on the ResNet phase's server (no secret "
+        f"key): load {out['load_s']:.3f} s (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in server.load_seconds.items())
+        + f"); request {out['request_s']:.3f} s: path {out['path']}, {out['boots']}, "
+        f"{out['graph_launches']} graph launch; result blob byte-equal to the full VM's: "
+        f"{out['equals_full']}")
+    if (ret is not None or "whole_capture" not in server.load_seconds
+            or out["path"] != ["whole", None] or out["boots"] != dict(replayed=2, eager={})
+            or out["graph_launches"] != 1 or out["inline"] != 2 or not out["equals_full"]):
+        raise AssertionError(f"the deep program's whole-program server: {out}")
+    del ex, bs
+    server.executor = None
+    server._arg_cts.clear()
+    return out
+
+
 def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     """(d) the deep program under the 16 GiB plan: the resident native VM
     loads it again under DACAPO_TPU_HBM_BYTES = NATIVE_PLAN_BYTES (its
@@ -1696,8 +1944,9 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     host memory. The resident VM's request ciphertext is served again
     (run_encrypted): RMS, 2 native bootstraps, every graph window
     replayed, the planned key copies, device key bytes within the budget,
-    outputs bit-equal to the resident executor's; the bootstraps are timed;
-    one request profiled. Returns (results, the NTT calls of the profiled
+    the request's peak within NATIVE_PLAN_REQUEST_PEAK_BYTES, outputs
+    bit-equal to the resident executor's; the bootstraps are timed; one
+    request profiled. Returns (results, the NTT calls of the profiled
     request on the device)."""
     out = dict(hbm_bytes=NATIVE_PLAN_BYTES)
     vm = resident["vm"]
@@ -1751,9 +2000,10 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
             boot_s.clear()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            outs, _ = ex.run_encrypted([args])
+            outs, _ = ex.run_encrypted([args], jit=True)
             torch.cuda.synchronize()
             r = dict(request_s=time.perf_counter() - t0, bootstrap_s=list(boot_s),
+                     path=list(ex.last_path),
                      bootstraps=bs.calls - calls0, graph_replays=ex.replays - replays0,
                      ntt_launches=dict(nk.LAUNCHES), plain_ntt_calls=dict(ntt_mod.CALLS),
                      key_copies={k: ex.key_staging[k] - staged0[k] for k in staged0},
@@ -1773,7 +2023,7 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
                 f"{kc['host'] + kc['device']}, LRU uploads {r['lru_uploads']} "
                 f"({r['lru_upload_bytes']} bytes), device key bytes at their peak "
                 f"{r['key_device_peak_bytes']}, peak {r['peak_bytes']} bytes; outputs bit-equal "
-                f"to the resident VM's: {r['equals_resident']}")
+                f"to the resident VM's: {r['equals_resident']}; jit=True took {r['path']}")
             if res.shape != resident["x"].shape or not np.isfinite(res).all():
                 raise AssertionError("bad output of the deep program under the budget")
             if not r["rms"] <= RMS_BAR_NATIVE_DEEP or not r["equals_resident"]:
@@ -1781,12 +2031,16 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
                                      f"bit-equal to the resident VM {r['equals_resident']}")
             r["boots"] = ex.last_bootstraps
             if (r["bootstraps"] != 2 or r["graph_replays"] != cap["graphs"]
+                    or r["path"] != ["segment", "key_budget"]
                     or r["boots"] != dict(replayed=0, eager={"key_budget": 2})
                     or kc["host"] + kc["device"] != cap["key_copies_planned"]):
                 raise AssertionError(f"the deep program under the budget: {r}")
             if r["key_device_peak_bytes"] > galois.budget:
                 raise AssertionError(f"device key bytes {r['key_device_peak_bytes']} passed "
                                      f"the budget {galois.budget}")
+            if r["peak_bytes"] > NATIVE_PLAN_REQUEST_PEAK_BYTES:
+                raise AssertionError(f"the request's peak {r['peak_bytes']} bytes passed "
+                                     f"{NATIVE_PLAN_REQUEST_PEAK_BYTES}")
             if min(r["ntt_launches"].values()) <= 0 or any(r["plain_ntt_calls"].values()):
                 raise AssertionError(f"the NTT kernel did not carry the request: {r}")
     finally:
@@ -1796,7 +2050,8 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     out["bootstrap_median_s"] = statistics.median(t for r in requests for t in r["bootstrap_s"])
     args = resident["requests"][0][0]
     prof = out["profiled_request"] = profile_request(
-        torch, lambda: ex.run_encrypted([args]), "native budget", ex, nk, ntt_mod, cpu=False,
+        torch, lambda: ex.run_encrypted([args], jit=True), "native budget", ex, nk, ntt_mod,
+        cpu=False,
         trace_loss_ok=True)
     staging = [k for k in prof["by_kernel"] if k["name"].startswith("Memcpy HtoD (Pinned")]
     out["key_upload_device_s"] = sum(k["device_s"] for k in staging)
@@ -1823,7 +2078,7 @@ def release_host_cache(torch):
     return False
 
 
-def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
+def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep):
     """ResNet-20 `dacapo 40` on tpu_n15b with native bootstraps, client to
     server, from the committed artifacts/resnet_dacapo40_tpu_n15b (the
     .hevm's SHA-256 and the trace's .cst, the one the ResNet phase traced,
@@ -1849,8 +2104,10 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
     launches outside graphs plus what each replayed graph recorded at
     capture) are positive in both modes; the output ciphertexts are
     byte-equal. Then the NTT is held to its plain version at every batch
-    size the load and the requests gave it. Returns (results, the NTT calls
-    of the timed request, the NTT check)."""
+    size the load and the requests gave it. Before the server loads ResNet
+    it serves the deep program's whole-program request (deep: the compiled
+    files and (e)'s blobs; serve_native_whole_server). Returns (results, the
+    NTT calls of the timed request, the NTT check)."""
     from dacapo_tpu_torch.crypto import keys as keymod
     from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper
     from dacapo_tpu_torch.models import cnn_he, resnet
@@ -1908,20 +2165,25 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
     out["allocated_at_load_start_bytes"] = torch.cuda.memory_allocated()
     log(f"[resnet native] {out['allocated_at_load_start_bytes']} bytes allocated on the card "
         "as the server's load starts")
-    shapes = NttShapes()        # stopped after the requests
-    shapes.start()
     t0 = sync()
-    server = HEVM("tpu_n15b", keyset_dir=halves["server"], mode="server")
+    server = HEVM("tpu_n15b", keyset_dir=halves["server"], mode="server", jit=True)
     t1 = sync()
     if server.scheme.keys.s_ntt is not None:
         raise AssertionError("the server's keyset holds the secret key")
+    keyset_load_s = t1 - t0
+    out["deep_whole_server"] = serve_native_whole_server(torch, server, *deep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = NttShapes()        # stopped after the requests
+    shapes.start()
+    t1 = sync()
     server.load(cst, hevm)
     t2 = sync()
     ex = server.executor
     bs, galois = ex.bootstrapper, server.scheme.keys.galois
     planes = bs.cached_planes() if isinstance(bs, NativeBootstrapper) else {}
     conj_bytes = server.scheme.keys.conj.nbytes if server.scheme.keys.conj is not None else 0
-    out.update(keyset_load_s=t1 - t0, load_s=t2 - t1, load_parts_s=server.load_seconds,
+    out.update(keyset_load_s=keyset_load_s, load_s=t2 - t1, load_parts_s=server.load_seconds,
                instructions=len(server.prog.ops), capture=ex.capture_stats,
                warmup=ex.bootstrap_stats, streaming=ex.streaming, pool_bytes=ex.pool_bytes,
                plain_bytes=ex.plain_bytes, plaintext_budget_bytes=ex._pt_budget,
@@ -1994,7 +2256,7 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
         # the segment request first, on the graphs the load captured; the
         # per-op request (eager bootstraps, which drop the graphs) is what
         # its output is held to
-        for kind, jit in (("timed", "auto"), ("per-op", False)):
+        for kind, jit in (("timed", True), ("per-op", False)):
             reset_counts(nk, ntt_mod)
             calls0, replays0, n_keys0 = bs.calls, graph_replays(ex), len(galois)
             replayed0 = graph_ntt(ex)
@@ -2010,7 +2272,7 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
             replay_s = [t for t, rep in boot_s if rep]
             eager_s = [t for t, rep in boot_s if not rep]
             r = requests[kind] = dict(
-                request_s=request_s, bootstrap_s=[t for t, _ in boot_s],
+                request_s=request_s, path=list(ex.last_path), bootstrap_s=[t for t, _ in boot_s],
                 bootstrap_replayed=[rep for _, rep in boot_s],
                 bootstraps_total_s=sum(t for t, _ in boot_s), replayed_s=sum(replay_s),
                 eager_s=sum(eager_s), boots=ex.last_bootstraps,
@@ -2033,7 +2295,7 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
                 first = blobs
             r["equals_segment"] = blobs == first
             span = lambda ts: f"{min(ts):.3f}-{max(ts):.3f}" if ts else "none"
-            log(f"[resnet native] {kind} request ({'segment' if jit else 'per-op'}) "
+            log(f"[resnet native] {kind} request (jit={jit}: {r['path']}) "
                 f"{request_s:.3f} s: {r['bootstraps']} native bootstraps "
                 f"{r['bootstraps_total_s']:.3f} s ({r['boots']}; replays {len(replay_s)} "
                 f"{r['replayed_s']:.3f} s, each {span(replay_s)} s; eager {len(eager_s)} "
@@ -2061,6 +2323,8 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
             if not r["equals_segment"]:
                 raise AssertionError(f"the {kind} request's output ciphertexts differ from "
                                      "the segment request's")
+            if r["path"] != (["segment", "streaming"] if jit else ["per_op", None]):
+                raise AssertionError(f"the {kind} request took {r['path']}")
             want_boots = (planned if jit else
                           dict(replayed=0, eager={"per_op": expected["bootstraps"]}))
             if r["boots"] != want_boots or len(replay_s) != r["boots"]["replayed"]:
@@ -2068,7 +2332,7 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work):
                                      f"planned {want_boots}")
     finally:
         del bs.bootstrap
-        server.jit = "auto"
+        server.jit = True
         shapes.stop()
     out["requests"] = requests
     out["request_s"] = requests["timed"]["request_s"]
@@ -2188,6 +2452,33 @@ def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
             raise AssertionError(f"{name}: an NTT mode never ran in the server's request")
         res_blobs = [server.getOutputCtxt(j) for j in range(server.prog.res_length)]
 
+        # the whole-program path: a server HEVM(jit=True) on the same keys,
+        # whose load captures one graph; the same blobs, three timed requests
+        t0 = sync()
+        wserver = HEVM(profile, keyset_dir=keydir, mode="server", jit=True)
+        wserver.load(cst, hevm)
+        t1 = sync()
+        wex = wserver.executor
+        for i, b in enumerate(blobs):
+            wserver.setCtxt(i, b)
+        wtimes, replays0 = [], wex.replays
+        for _ in range(3):
+            t2 = sync()
+            wserver.run()
+            wtimes.append(sync() - t2)
+        plain_calls = {k: v + ntt_mod.CALLS[k] for k, v in plain_calls.items()}
+        w = r["whole"] = dict(
+            load_s=t1 - t0, load_parts_s=wserver.load_seconds,
+            capture=wex.capture_stats.get("whole"), path=list(wex.last_path),
+            graph_launches=wex.replays - replays0, request_s=wtimes,
+            request_median_s=statistics.median(wtimes),
+            equals_segment=[wserver.getOutputCtxt(j) for j in range(
+                wserver.prog.res_length)] == res_blobs)
+        if (w["path"] != ["whole", None] or w["graph_launches"] != 3
+                or "whole_capture" not in wserver.load_seconds or not w["equals_segment"]):
+            raise AssertionError(f"{name}: the whole-program server {w}")
+        del wserver, wex
+
         t0 = sync()
         dec = np.stack([client.decrypt_result(b) for b in res_blobs])
         r["client_decrypt_s"] = sync() - t0
@@ -2219,7 +2510,11 @@ def serve_basic(np, torch, HEVM, nk, ntt_mod, work):
             + f"), {r['galois_keys']} galois keys, no secret key; requests "
             + ", ".join(f"{t:.4f}" for t in times)
             + f" s (median {r['request_median_s']:.4f}), idle share "
-            f"{prof['idle_share']}, NTT calls on the device {prof['ntt_launches']}; client "
+            f"{prof['idle_share']}, NTT calls on the device {prof['ntt_launches']}; whole-program "
+            f"server (jit=True: load {w['load_s']:.3f} s, one graph of "
+            f"{w['capture']['windows']} windows, {w['capture']['nodes']} nodes) requests "
+            + ", ".join(f"{t:.4f}" for t in w["request_s"])
+            + f" s (median {w['request_median_s']:.4f}), byte-equal: {w['equals_segment']}; client "
             f"decrypt {r['client_decrypt_s']:.4f} s, rms {r['rms']:.3e} (bar {RMS_BAR_BASIC}); "
             f"full VM on the same blobs bit-equal: {r['full_equals_server']}; peak "
             f"{r['peak_bytes']} bytes")
@@ -2571,11 +2866,13 @@ def main():
                   ntt={m: {f"{p}/B={b}": v for (p, b), v in r.items()}
                        for m, r in results.items()})
     by_path = {}     # path -> NTT launches of each mode (kernel name -> count)
+    marks = [time.perf_counter()]       # where the running phase's current part began
+    part_seconds = {}
 
     def timed(name, fn, *args):
         gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
+        t0 = marks[0] = time.perf_counter()
         out = fn(*args)
         seconds[name] = time.perf_counter() - t0
         log(f"[time] {name}: {seconds[name]:.1f} s")
@@ -2604,14 +2901,29 @@ def main():
                                      params)
     by_path["scheme_tpu_n16"] = report["scheme_tpu_n16"]["launches"]
 
+    def lap(name):
+        """Seconds of a part of a phase, since the last lap or the phase's start."""
+        now = time.perf_counter()
+        part_seconds[name] = now - marks[0]
+        marks[0] = now
+        log(f"[time]   {name}: {part_seconds[name]:.1f} s")
+
+    deep_whole = {}         # what the native ResNet phase's server serves first
+
     def native(kd):
         out = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
         out["tpu_n15b"], by_path["native_deep_tpu_n15b_request"], \
             (by_path["native_bootstrap_tpu_n15b"], by_path["native_bootstrap_graph_tpu_n15b"]), \
             kept = serve_native(np, torch, HEVM, nk, ntt_mod, params, kd, files)
+        lap("native_segment")
+        out["tpu_n15b_whole"], by_path["native_deep_whole_tpu_n15b_request"], blobs = \
+            serve_native_whole(np, torch, nk, ntt_mod, files, kept)
+        lap("native_whole")
         out["tpu_n15b_budget"], by_path["native_deep_keystream_tpu_n15b_request"] = \
             serve_native_budget(np, torch, nk, ntt_mod, files, kept)
+        lap("native_budget")
         del kept
+        deep_whole.update(files=files, blobs=blobs)
         return out
 
     # one tpu_n15b keyset: the native phase generates it (the bootstrap's
@@ -2647,10 +2959,11 @@ def main():
     report["resnet_native"], by_path["resnet_native_tpu_n15b_server_request"], \
         report["ntt_batch"]["resnet_native_tpu_n15b"] = timed(
             "resnet_native", serve_resnet_native, np, torch, HEVM, nk, ntt_mod, params,
-            keys_n15b.name, work.name)
+            keys_n15b.name, work.name, (deep_whole["files"], deep_whole["blobs"]))
     keys_n15b.cleanup()
     report["native_core"] = native_core(hevm_core)
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    log("[time] parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in part_seconds.items()))
 
     per_ct = {f"resnet_tpu_n15_batch{RESNET_BATCH}_request": RESNET_BATCH,
               f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request": BASIC_BATCH,
@@ -2685,7 +2998,7 @@ def main():
             batch_shapes=batch_shapes,
             native_shapes_tpu_n15b=n15b, oracle_shapes_tpu_n15=oracle,
             basic_shapes_tpu_n14=n14))
-    report.update(phase_seconds=seconds, kernels=kernels)
+    report.update(phase_seconds=seconds, part_seconds=part_seconds, kernels=kernels)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(json.dumps({"kernels": kernels}))

@@ -59,7 +59,8 @@ import torch
 from numpy.polynomial import chebyshev as C
 
 from .crt_lift import pair_crt_expand
-from .cuda import ntt_kernel
+from .cuda import graphs, ntt_kernel
+from .params import UploadUnderCapture, upload
 
 
 @dataclass(frozen=True)
@@ -392,9 +393,12 @@ class NativeBootstrapper:
         self._graphs = {}
         self._pinned = {}
         self._pin_sigs = set()
+        self.graph_epoch = 0    # drop_graphs calls: a graph that pinned before one is stale
+        self._stream = None     # the capture stream
         self._reads = None              # what the running bootstrap reads (_read)
         self._sig_planes = {}           # (nl, scale) -> what its last eager run read
-        self.replays = 0        # graph replays
+        self.replays = 0        # graph replays, inside another graph too (count_replay)
+        self.inlined = 0        # of which inside another graph (no launch of their own)
         # NTT calls the replayed graphs ran (what each recorded at capture)
         self.replayed_ntt = dict.fromkeys(ntt_kernel.RECORDED, 0)
 
@@ -456,7 +460,7 @@ class NativeBootstrapper:
         qs = np.array(ctx.q_primes[:num_q], dtype=np.int64)
         assert (qs > self.q0 // 2).all(), "mod_raise needs q_i > q0/2"
         # v <= q0/2: v already < q_i; v > q0/2: v - q0 + q_i in [0, q_i)
-        corr = torch.from_numpy(qs - np.int64(self.q0)).to(c.device)
+        corr = upload(torch.from_numpy(qs - np.int64(self.q0)), c.device)
         v = c.to(torch.int64)[:, None, :]                 # [2, 1, N]
         lifted = torch.where(v > self.q0 // 2, v + corr[None, :, None], v)
         flat = lifted.to(torch.int32).reshape(2 * num_q, ctx.n)
@@ -669,7 +673,10 @@ class NativeBootstrapper:
         against the bound and are never dropped. With a sequence, the
         graphs are dropped first (drop_graphs) and then the planes held
         outside any signature's group (bootstraps run before one); a bound
-        below the planes held drops groups now, by the same rule."""
+        below the planes held drops groups now, by the same rule (_evict):
+        all but the group of the planned sequence's next signature, which
+        its bootstrap would hold again at once. So between requests the
+        planes held may pass the bound by that one group."""
         if sequence is not None:
             self.drop_graphs()
             grouped = {(id(c), k) for g in self._groups.values() for c, k, _ in g}
@@ -709,11 +716,16 @@ class NativeBootstrapper:
     def _evict(self, limit):
         """Drop whole signature groups, the furthest next use first, until
         the planes held, the pinned ones first, take at most `limit`
-        bytes."""
+        bytes. The group of the planned sequence's next signature stays:
+        its bootstrap, the next to run, would encode it again at once."""
         held = (sum(b for g in self._groups.values() for _, _, b in g)
                 + sum(p[2] for p in self._pinned.values()))
-        while self._groups and held > limit:
-            victim = max(self._groups, key=self._next_use)
+        keep = self._sequence[self._pos:self._pos + 1]
+        while held > limit:
+            cands = [g for g in self._groups if g not in keep]
+            if not cands:
+                break
+            victim = max(cands, key=self._next_use)
             for cache, key, b in self._groups.pop(victim):
                 if cache.pop(key, None) is not None:
                     self._dropped.add((id(cache), key))
@@ -749,6 +761,40 @@ class NativeBootstrapper:
         if rec is not None and not self._current(rec):
             raise RuntimeError(f"the CUDA graph of bootstrap signature {sig} reads keys "
                                "replaced since its capture: capture it again or drop_graphs()")
+        self._enter(sig)
+        if rec is not None:
+            rec["inp"].copy_(data[:, :nl, :])
+            rec["graph"].replay()
+            self._replayed(rec["ntt"])
+            self._leave(sig)
+            return rec["out"].clone(), rec["meta"]
+        seq = self._sequence
+        before = self._plane_entries() if seq else {}
+        self._reads = {}
+        try:
+            out = self._bootstrap(data, nl, scale, target_level)
+        finally:
+            self._sig_planes[sig], self._reads = self._reads, None
+        after = self._plane_entries() if seq else {}
+        self._leave(sig, after, [key for key in after if key not in before])
+        return out
+
+    def count_replay(self, nl, scale, ntt):
+        """The host bookkeeping of one bootstrap of signature (nl, scale)
+        that ran inside another CUDA graph (the executor's whole-program
+        graph, which pinned the signature's planes), as `bootstrap` keeps it
+        for a replay of its own graph: the count, the planned sequence's
+        position, room under the bound, the replay and its recorded NTT
+        calls `ntt`."""
+        sig = (int(nl), float(scale))
+        self._enter(sig)
+        self._replayed(ntt)
+        self.inlined += 1
+        self._leave(sig)
+
+    def _enter(self, sig):
+        """Before a bootstrap of sig: the count, and once a sequence is
+        planned, where the request is and room for sig's planes."""
         seq = self._sequence
         if seq:
             if sig in seq:                               # where the request is
@@ -756,22 +802,17 @@ class NativeBootstrapper:
             if self.plane_budget is not None:
                 self._make_room(sig)
         self.calls += 1
-        if rec is not None:
-            rec["inp"].copy_(data[:, :nl, :])
-            rec["graph"].replay()
-            self.replays += 1
-            for k, v in rec["ntt"].items():
-                self.replayed_ntt[k] += v
-            out, new = (rec["out"].clone(), rec["meta"]), []
-        else:
-            before = self._plane_entries() if seq else {}
-            self._reads = {}
-            try:
-                out = self._bootstrap(data, nl, scale, target_level)
-            finally:
-                self._sig_planes[sig], self._reads = self._reads, None
-            after = self._plane_entries() if seq else {}
-            new = [key for key in after if key not in before]
+
+    def _replayed(self, ntt):
+        self.replays += 1
+        for k, v in ntt.items():
+            self.replayed_ntt[k] += v
+
+    def _leave(self, sig, after=None, new=()):
+        """After a bootstrap of sig that encoded the planes `new` (keys of
+        `after`, the planes held now): those kept as its group, and the
+        sequence's position past it."""
+        seq = self._sequence
         if seq:
             if new or sig not in self._pin_sigs:
                 group = self._groups.setdefault(sig, [])
@@ -780,7 +821,6 @@ class NativeBootstrapper:
             self.reencodes += sum(key in self._dropped for key in new)
             self._dropped.difference_update(new)
             self._pos = (self._pos + 1) % len(seq)
-        return out
 
     # ----------------------------------------------------- CUDA graphs
     def _current(self, rec):
@@ -803,19 +843,24 @@ class NativeBootstrapper:
             return "mesh"
         return None
 
-    def graph_plan(self, sigs=()):
+    def graph_plan(self, sigs=(), budget=False):
         """{(nl, scale): None, or "dropped_group"} for each signature of the
-        planned sequence, of `sigs` and of each run so far: None where its
-        bootstraps may run as a graph under the plane bound. A graph bakes
+        planned sequence and of `sigs` (without a sequence, also of each run
+        so far: a signature run before the sequence was planned, by another
+        program, runs in none of its requests): None where its bootstraps
+        may run as a graph under the plane bound. A graph bakes
         in every plane its signature reads, so these stay pinned while it
         lives: without a bound every signature; under it the signatures,
         the most bootstraps first, while the pinned planes and what any
         other signature reads besides them (held while it runs) fit the
         bound. The planes are those of each signature's last eager run (a
-        load's warm-up runs each)."""
+        load's warm-up runs each). budget: a bound to plan under in place of
+        the one set now (None: no bound)."""
         seq = self._sequence
-        sigs = list(dict.fromkeys(seq + list(sigs) + list(self._sig_planes)))
-        if self.plane_budget is None:
+        sigs = list(dict.fromkeys(seq + list(sigs) + ([] if seq else list(self._sig_planes))))
+        if budget is False:
+            budget = self.plane_budget
+        if budget is None:
             return dict.fromkeys(sigs)
         planes = {s: self._sig_planes.get(s, {}) for s in sigs}
         size = lambda entries: sum(p[2] for p in entries.values())
@@ -825,7 +870,7 @@ class NativeBootstrapper:
             cand = {**pinned, **planes[s]}
             need = max((size({e: p for e, p in planes[t].items() if e not in cand})
                         for t in sigs if t != s and t not in chosen), default=0)
-            if size(cand) + need <= self.plane_budget:
+            if size(cand) + need <= budget:
                 pinned, chosen = cand, chosen + [s]
         return {s: None if s in chosen else "dropped_group" for s in sigs}
 
@@ -845,21 +890,24 @@ class NativeBootstrapper:
 
     def capture(self, nl, scale, target_level, pool=None):
         """The CUDA graph of the signature's bootstrap, made now and replayed
-        by every later `bootstrap` of it on the card. An eager warm-up
-        first fills the Evaluator's, the CRT lift's and the plane caches
-        (no upload from host memory may run under capture; it encodes
-        again what the bound dropped), then
-        `_bootstrap` is recorded over a static input, and the planes it
-        read are pinned (drop_graphs releases them). The capture's calls
-        leave `calls` and the request's position as they were. A graph
-        reads the keys it was captured with (`bootstrap` refuses it after
-        a key is replaced). pool: the memory pool to capture into (the
-        executor's segment graphs', graph by graph after them); the default
-        a pool of its own. Raises if no graph can run (capture_blocker; the
-        bound is the caller's to plan, graph_plan) or the capture fails.
-        Returns the record: graph, inp, out, meta, the NTT calls recorded,
-        warmup_s, capture_s (recording), instantiate_s and pool_bytes (the
-        device memory the capture reserved)."""
+        by every later `bootstrap` of it on the card: `_bootstrap` recorded
+        over a static input, and the planes it read pinned (drop_graphs
+        releases them). No upload from host memory may run under capture:
+        a signature that ran eagerly since its keys were made (a load's
+        warm-up) records at once, and where a plane the bound dropped or a
+        device cache would fill under capture (UploadUnderCapture), or the
+        signature never ran, an eager warm-up (`warm`) first fills the
+        Evaluator's, the CRT lift's and the plane caches, and it records
+        again. The capture's calls leave `calls` and the request's position
+        as they were. A graph reads the keys it was captured with
+        (`bootstrap` refuses it after a key is replaced). pool: the memory
+        pool to capture into (the executor's segment graphs', graph by graph
+        after them); the default a pool of its own. Raises if no graph can
+        run (capture_blocker; the bound is the caller's to plan,
+        graph_plan) or the capture fails. Returns the record: graph, inp,
+        out, meta, the NTT calls recorded, warmup_s (0 where it recorded at
+        once), capture_s (recording), instantiate_s, nodes and pool_bytes
+        (the device memory the capture reserved)."""
         why = self.capture_blocker()
         if why is not None:
             raise RuntimeError(f"bootstrap signature {(nl, scale)} cannot run as a CUDA "
@@ -867,32 +915,52 @@ class NativeBootstrapper:
         key = (int(nl), float(scale), int(target_level))
         self._graphs.pop(key, None)
         dev = self.s.device
-        t0 = time.perf_counter()
-        self.warm(*key)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
         inp = torch.zeros((2, key[0], self.s.ctx.n), dtype=torch.int32, device=dev)
-        torch.cuda.synchronize(dev)
-        # what torch.cuda.graph does as it starts: the device memory reserved
-        # after it grows by what the capture takes
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
+
+        def body():
+            return self._bootstrap(inp, *key[:2], key[2])
+
+        def reserved():
+            # what torch.cuda.graph does as it starts: the device memory
+            # reserved after it grows by what the capture takes
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            return torch.cuda.memory_reserved(dev)
+
         ntt0 = dict(ntt_kernel.RECORDED)
-        t1 = time.perf_counter()
-        # recorded on torch's shared capture stream; the warm-up ran on the
-        # current one, whose cached blocks later requests reuse
-        with torch.cuda.graph(graph, pool=pool):
-            out, meta = self._bootstrap(inp, *key[:2], key[2])
-            t2 = time.perf_counter()
-        t3 = time.perf_counter()
+        t0 = time.perf_counter()
+        rec, warmup_s, before = None, 0.0, reserved()
+        if key[:2] in self._sig_planes and self._keys_ready():
+            try:
+                rec = graphs.record(body, self._stream, pool)
+            except UploadUnderCapture:
+                ntt_kernel.RECORDED.update(ntt0)     # the dropped recording's
+        if rec is None:
+            self.warm(*key)
+            warmup_s = time.perf_counter() - t0
+            before = reserved()
+            rec = graphs.record(body, self._stream, pool)
+        out, meta = rec["out"]
         keys = self.s.keys
-        rec = dict(graph=graph, inp=inp, out=out, meta=meta, keys=keys, galois=keys.galois,
-                   generation=keys.galois.generation, conj=keys.conj,
+        rec = dict(graph=rec["graph"], inp=inp, out=out, meta=meta, keys=keys,
+                   galois=keys.galois, generation=keys.galois.generation, conj=keys.conj,
                    ntt={k: v - ntt0[k] for k, v in ntt_kernel.RECORDED.items()},
-                   warmup_s=t1 - t0, capture_s=t2 - t1, instantiate_s=t3 - t2,
-                   pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+                   warmup_s=warmup_s, capture_s=rec["capture_s"],
+                   instantiate_s=rec["instantiate_s"], nodes=rec["nodes"],
+                   pool_bytes=torch.cuda.memory_reserved(dev) - before)
         self._pin(key[:2])
         self._graphs[key] = rec
         return rec
+
+    def _keys_ready(self):
+        """Whether every key a bootstrap reads is made (none is drawn under
+        capture, where the draw would be lost)."""
+        galois = self.s.keys.galois
+        n_slots = self.s.ctx.config.n_slots
+        return self.s.keys.conj is not None and all(
+            st % n_slots in galois for st in self.rotation_steps())
 
     def _pin(self, sig):
         """Pin every plane the signature's last eager run read: out of its
@@ -911,8 +979,11 @@ class NativeBootstrapper:
 
     def drop_graphs(self):
         """Free every graph; their pinned planes go back under the bound,
-        each into the group of the signature that pinned it."""
+        each into the group of the signature that pinned it. `graph_epoch`
+        counts the calls: a graph of another owner that pinned planes here
+        (the executor's whole-program graph) is stale after one."""
         self._graphs.clear()
+        self.graph_epoch += 1
         for cache, key, b, sig in self._pinned.values():
             if key in cache:
                 self._groups.setdefault(sig, []).append((cache, key, b))

@@ -12,6 +12,8 @@ uint32 Shoup arithmetic gives.
 
 import torch
 
+from .params import upload
+
 
 def _col(ctx, values):
     """int64 [len(values), 1] tensor on the context's device, made once per
@@ -21,8 +23,8 @@ def _col(ctx, values):
     key = tuple(values)
     t = ctx._col_cache.get(key)
     if t is None:
-        t = ctx._col_cache[key] = torch.tensor(values, dtype=torch.int64,
-                                               device=ctx.device)[:, None]
+        t = ctx._col_cache[key] = upload(torch.tensor(values, dtype=torch.int64),
+                                         ctx.device)[:, None]
     return t
 
 

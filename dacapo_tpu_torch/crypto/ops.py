@@ -52,7 +52,7 @@ from .cuda.ntt_kernel import ntt_cuda
 from .encoding import INT64_BOUND
 from .modmath import add_mod, sub_mod, neg_mod, mul_mod, host_shoup
 from .ntt import ntt_fwd, ntt_inv
-from .params import to_dev
+from .params import to_dev, upload
 
 
 def _sum_mod(terms, q, dim=0):
@@ -132,7 +132,7 @@ class Evaluator:
         remainder by a positive modulus gives the integers np.mod does (the
         host encoder's and key generator's). Keys and encodes at load use
         it: the host's per-prime np.mod was most of their time."""
-        c = torch.from_numpy(np.ascontiguousarray(coeffs, dtype=np.int64)).to(self.device)
+        c = upload(torch.from_numpy(np.ascontiguousarray(coeffs, dtype=np.int64)), self.device)
         return (c.unsqueeze(-2) % self._q(rows).to(torch.int64)).to(torch.int32)
 
     def encoded_residues(self, encoder, prod, rows):
@@ -152,15 +152,14 @@ class Evaluator:
         t = self._tabs.get(key)
         if t is None:
             dtype = torch.int32 if self.device.type == "cuda" else torch.int64
-            t = self._tabs[key] = torch.tensor(key[1], dtype=dtype,
-                                               device=self.device)
+            t = self._tabs[key] = upload(torch.tensor(key[1], dtype=dtype), self.device)
         return t
 
     def _perm(self, name):
         t = self._tabs.get(name)
         if t is None:
-            t = self._tabs[name] = torch.from_numpy(
-                getattr(self.ctx, name).astype(np.int64)).to(self.device)
+            t = self._tabs[name] = upload(torch.from_numpy(
+                getattr(self.ctx, name).astype(np.int64)), self.device)
         return t
 
     # ---------------------------------------------------------------- NTT
@@ -235,6 +234,24 @@ class Evaluator:
                              f"device, got {lohi.dtype} on {lohi.device}")
         return self._decode_plain(lohi, rows)
 
+    def decode_tables(self, rows, b=None):
+        """The device tables a decode of plaintexts to `rows` reads: q and
+        2^k mod q of each row, made at first use; with b, also the NTT's
+        row index of b plaintexts (the executor makes every decode group's
+        before capturing the graphs that decode in-graph)."""
+        rows = tuple(rows)
+        key = ("dec", rows)
+        tabs = self._tabs.get(key)
+        if tabs is None:
+            ix = np.asarray(rows, dtype=np.int64)
+            ht = self.ctx.host_tables
+            tabs = self._tabs[key] = (
+                upload(torch.from_numpy(ht["q"][ix].astype(np.int64)[:, None]), self.device),
+                upload(torch.from_numpy(ht["pow2"][ix].astype(np.int64)), self.device))
+        if b is not None:
+            self._rows(rows * b)
+        return tabs
+
     def _decode_plain(self, lohi, rows):
         """Each coefficient is sign * (hi_abs * 2^32 + lo) * 2^k (row 0: lo;
         row 1: hi_abs in bits 0-22, sign in bit 23, k in bits 24-31): its
@@ -243,15 +260,7 @@ class Evaluator:
         canonical residue, which int64 `%` gives directly; the words are
         masked to their uint32 value first, so no shift sees a sign."""
         rows = tuple(rows)
-        key = ("dec", rows)
-        tabs = self._tabs.get(key)
-        if tabs is None:
-            ix = np.asarray(rows, dtype=np.int64)
-            ht = self.ctx.host_tables
-            tabs = self._tabs[key] = (
-                torch.from_numpy(ht["q"][ix].astype(np.int64)[:, None]).to(self.device),
-                torch.from_numpy(ht["pow2"][ix].astype(np.int64)).to(self.device))
-        q, pow2 = tabs                                  # [R, 1], [R, 256]
+        q, pow2 = self.decode_tables(rows)              # [R, 1], [R, 256]
         b = lohi.shape[0]
         w = lohi.to(torch.int64) & 0xFFFFFFFF
         lo, hi = w[:, 0, None, :], w[:, 1, None, :]     # [B, 1, N]
@@ -367,7 +376,7 @@ class Evaluator:
             m = np.ascontiguousarray(g.m[:, cols])
             hit = self._tabs[key] = (
                 [g.targets[i] for i in cols],
-                torch.from_numpy(m.astype(np.int64)).to(self.device),
+                upload(torch.from_numpy(m.astype(np.int64)), self.device),
                 slice(lo + (sh.rank - lo) % sh.mp, hi, sh.mp),
                 len(range(sh.rank, lo, sh.mp)))
         return hit
@@ -423,8 +432,8 @@ class Evaluator:
             owned = [[g for g in glob if g % sh.mp == r] for r in range(sh.mp)]
             rmax = max(map(len, owned))
             idx = [(g % sh.mp) * rmax + owned[g % sh.mp].index(g) for g in glob]
-            hit = self._tabs[key] = (rmax, torch.tensor(idx, dtype=torch.int64,
-                                                        device=self.device))
+            hit = self._tabs[key] = (rmax, upload(torch.tensor(idx, dtype=torch.int64),
+                                                  self.device))
         return hit
 
     def assemble_rows(self, parts, nl):

@@ -48,6 +48,25 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class UploadUnderCapture(RuntimeError):
+    """A copy from host memory was asked for while the current CUDA stream
+    records a graph. Raised before the copy, so the capture stays valid: a
+    caller that recorded without an eager warm-up first warms up and
+    records again (vm/executor.py `_seg_graph`)."""
+
+
+def upload(t, device, non_blocking=False) -> torch.Tensor:
+    """Host tensor t on `device` (non_blocking: from pinned memory, in
+    stream order). Every device cache of the port and the key store's LRU
+    fill through here, so none fills while a graph records: that raises
+    UploadUnderCapture."""
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise UploadUnderCapture(f"a host-to-device copy of {tuple(t.shape)} {t.dtype} "
+                                 "under CUDA graph capture")
+    return t.to(device, non_blocking=non_blocking)
+
+
 def to_dev(arr, device) -> torch.Tensor:
     """Host uint32 (or int32) array -> int32 tensor with the same bits."""
     a = np.ascontiguousarray(arr)
@@ -55,7 +74,7 @@ def to_dev(arr, device) -> torch.Tensor:
         a = a.view(np.int32)
     if a.dtype != np.int32:
         raise TypeError(f"residue planes must be uint32 or int32, got {a.dtype}")
-    return torch.from_numpy(a.copy()).to(device)
+    return upload(torch.from_numpy(a.copy()), device)
 
 
 def to_host(t) -> np.ndarray:

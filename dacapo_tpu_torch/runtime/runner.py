@@ -58,9 +58,16 @@ window's keys are copied into before it runs
 
 `jit` selects the executor's path (vm/executor.py): "auto" (the default) or
 "segment" runs the segment plan, as CUDA graphs that `load` captures on the
-card (`load_seconds["capture"]`) and eagerly on the CPU; True does the same
-(the JAX package's whole-program function is not ported); False dispatches
-per op, as does every request after `setDebug(True)`.
+card (`load_seconds["capture"]`) and eagerly on the CPU; True runs the whole
+program as one function where the JAX package's rule allows it (no streamed
+plaintexts, no bootstrap or only native ones): on the card one CUDA graph a
+request, with the native bootstraps recorded inline, which `load` captures
+(`load_seconds["whole_capture"]`, `executor.capture_stats["whole"]`), and
+the same walk eagerly on the CPU; elsewhere, and under the port's own
+blockers (a galois-key budget, a mesh, a bootstrap signature the plane bound
+cannot pin), the segment path, which `load` then captures; each request
+states its path and why (`executor.last_path`). False dispatches per op, as
+does every request after `setDebug(True)`.
 Unlike the JAX runner, a failed capture raises: no path falls back to
 per-op dispatch by itself.
 
@@ -252,9 +259,11 @@ class HEVM:
     def load(self, cst_path, hevm_path):
         """Full and server modes: constants + bytecode -> executor +
         pre-encoded plaintexts, and on the card the native bootstraps'
-        warm-up, the oracle graphs, the segment graphs and the native
-        bootstrap's graphs. The seconds of
-        each part are kept in `load_seconds`."""
+        warm-up, the oracle graphs, and the graphs the requests replay:
+        with jit=True the whole-program graph where the executor's
+        whole_path allows it, else the segment graphs and the native
+        bootstrap's graphs. The seconds of each part are kept in
+        `load_seconds`."""
         if self.mode == "client":
             raise RuntimeError("a client VM evaluates nothing: use loadClient")
         laps = [time.perf_counter()]
@@ -306,7 +315,12 @@ class HEVM:
             self.executor.key_arena()
             lap()
             parts.append("key_arena")
-        if self.device.type == "cuda" and self.jit is not False:
+        if (self.device.type == "cuda" and self.jit is True
+                and self.executor.whole_path()[0] == "whole"):
+            self.executor.precompile_whole()
+            lap()
+            parts.append("whole_capture")
+        elif self.device.type == "cuda" and self.jit is not False:
             self.executor.precompile_segments()
             lap()
             parts.append("capture")

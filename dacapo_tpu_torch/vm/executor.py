@@ -1,6 +1,6 @@
 """HEVM executor: interprets the bytecode stream over the PyTorch crypto layer.
 
-Port of dacapo_tpu/vm/executor.py, three of its paths:
+Port of dacapo_tpu/vm/executor.py, its paths:
 
 * segment execution (`jit="auto"`, the default, or `"segment"`): the
   (SSA, fused) stream is cut into windows at bootstraps and every
@@ -40,10 +40,23 @@ Port of dacapo_tpu/vm/executor.py, three of its paths:
   nothing and runs this rank's rows only. The results are all-gathered
   over dp: every rank returns the whole batch.
 
-`jit=True` takes the segment path too. The JAX package compiles a program
-without bootstraps as one function there; that whole-program graph is not
-ported: the MLP is one window anyway, and a bootstrapped program takes the
-segment path under the JAX rule as well.
+* the whole-program path (`jit=True`): the JAX package's rule
+  (dacapo_tpu/vm/executor.py run_encrypted) compiles the whole request into
+  one function wherever the executor does not stream its plaintexts, debug
+  is off, and the program has no bootstrap or only native ones; streaming
+  and the emulated (oracle) bootstrap fall back to the segment path, debug
+  to per-op dispatch. The port keeps that rule, and adds blockers of its
+  own that send a request to the segment path too: a galois-key budget
+  ("key_budget": the keys come through the key store's LRU), a mesh, and a
+  native bootstrap signature the plane bound of the segment path cannot
+  pin ("dropped_group"); `whole_path` says which, and every request leaves
+  its (path, why) in `last_path`. On the card the whole program is one
+  CUDA graph a request (`_whole_body`: the segment plan's windows and each
+  native bootstrap's device work, recorded inline), captured by
+  `precompile_whole` (HEVM.load) in a pool of its own after one eager
+  warm-up, every bootstrap signature's planes pinned; a replay keeps each
+  bootstrap's host bookkeeping (NativeBootstrapper.count_replay). On the
+  CPU ("cpu") the same walk runs eagerly.
 
 The NTT wrapper counts the launches it makes (crypto/cuda/ntt_kernel.py);
 recording a kernel into a graph is not a launch, and a replay launches the
@@ -139,16 +152,17 @@ import os
 import sys
 import time
 from bisect import bisect_right
-from collections import OrderedDict
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..crypto.bootstrap import Bootstrapper, EmulatedBootstrapper
 from ..crypto.bootstrap_native import NativeBootstrapper
-from ..crypto.cuda import ntt_kernel
+from ..crypto.cuda import graphs, ntt_kernel
 from ..crypto.ops import RowShard
-from ..crypto.params import to_dev
+from ..crypto.params import UploadUnderCapture, to_dev, upload
 from ..crypto.scheme import Ciphertext
 from .fuse import ssa_expand, build_fuse_plan, OP_ROTMAC, OP_UPRESCALE, cipher_reads
 from .hevm import (
@@ -237,6 +251,27 @@ def lru_key_copies(seq, n_slots):
     return copies
 
 
+def host_ahead(fn, items, workers=8):
+    """fn(item) for each item, in order, computed by up to `workers` threads
+    at most twice as many items ahead of the caller: the host half of a
+    load's encodes (numpy's FFTs and array arithmetic release the GIL) runs
+    in parallel with itself and with the device half the caller does with
+    each result. The same calls as a plain loop, so the same results."""
+    items = list(items)
+    workers = min(workers, os.cpu_count() or 1, len(items))
+    if workers <= 1:
+        yield from map(fn, items)
+        return
+    with ThreadPoolExecutor(workers) as pool:
+        queued = deque(pool.submit(fn, item) for item in items[:2 * workers])
+        for item in items[2 * workers:]:
+            out = queued.popleft().result()
+            queued.append(pool.submit(fn, item))
+            yield out
+        while queued:
+            yield queued.popleft().result()
+
+
 def boot_window_plan(windows, verdict, path, key_budget=False, mesh=False):
     """[(window index, signature, None or why it runs eagerly)] of a
     request's native boot windows ([(window index, (rows, scale, target
@@ -279,7 +314,11 @@ class HEVMExecutor:
         self.plain_bytes = self.pool_bytes = 0
         self._uk_cache = {}
         self._last_outputs = None
-        self._captured = None   # (what the graphs were captured for, {wi: graph})
+        # the single-request graphs: (what they were captured for and read,
+        # _capture_key; {wi: graph} of the segment plan, or the whole-program
+        # graph's record), one kind at a time
+        self._captured = None
+        self.last_path = None   # the last request's (path, why), run_encrypted
         self._captured_batch = None   # the same for one batch size
         self._mesh = None       # the mesh of the batch path, once use_mesh ran
         self.mesh_collectives = 0   # mp all-gathers issued by graph replays
@@ -429,9 +468,12 @@ class HEVMExecutor:
         """Under a memory limit (_hbm_limit), bound the native
         bootstrapper's cached diagonals and constants, planned over the
         request's bootstrap signatures (NativeBootstrapper.set_plane_budget),
-        path by path (path_budgets, _use_path). Each distinct input scale
-        encodes its own CoeffToSlot planes: ResNet-20 on tpu_n15b has 7 such
-        signatures, 37 GB of planes unbounded."""
+        path by path (path_budgets, _use_path); the group of the signature
+        the first bootstrap reads stays where held, so a load again on the
+        same scheme does not encode it again. Each distinct input scale
+        encodes its own
+        CoeffToSlot planes: ResNet-20 on tpu_n15b has 7 such signatures, 37
+        GB of planes unbounded."""
         bs = self.bootstrapper
         limit = self._hbm_limit()
         if not isinstance(bs, NativeBootstrapper) or limit is None:
@@ -476,10 +518,13 @@ class HEVMExecutor:
         """Before a request on `path` ("per_op" or "segment"): the
         plaintext LRU's bound and the native bootstrapper's plane bound of
         the path (_plan_bootstrap_planes; `plane_bound` False lifts the
-        latter); a lower bound drops what passes it now. The per-op path
-        first drops the native bootstrap's graphs, which releases their
-        pinned planes to its bound (the next segment request captures them
-        again)."""
+        latter); a lower bound drops what passes it now, all but the planes
+        of the signature the request bootstraps first, which it would
+        encode again at once (its bootstrap holds them anyway). The per-op
+        path first drops the native bootstrap's graphs, which releases
+        their pinned planes, and the whole-program graph's, to its bound
+        (graph_epoch: the next segment or whole-program request captures
+        them again)."""
         if path == "per_op" and isinstance(self.bootstrapper, NativeBootstrapper):
             self.bootstrapper.drop_graphs()
             self._boot_dep = None
@@ -619,10 +664,14 @@ class HEVMExecutor:
             # the compact pool, 2 rows of N words per unique payload, filled
             # chunk by chunk on the device
             pool = torch.empty((len(cid_info), 2, ctx.n), dtype=torch.int32, device=dev)
-            for i in range(0, len(cid_info), self.PT_ENCODE_BATCH):
+            starts = range(0, len(cid_info), self.PT_ENCODE_BATCH)
+
+            def encode(i):
                 chunk = cid_info[i: i + self.PT_ENCODE_BATCH]
-                pool[i: i + len(chunk)] = to_dev(enc.encode_compact_batch(
-                    [c[0] for c in chunk], [c[2] for c in chunk]), dev)
+                return enc.encode_compact_batch([c[0] for c in chunk], [c[2] for c in chunk])
+
+            for i, records in zip(starts, host_ahead(encode, starts)):
+                pool[i: i + len(records)] = to_dev(records, dev)
             self._pt_pool, self.pool_bytes = pool, pool.nbytes
             for cid, (_, nl, _) in enumerate(cid_info):
                 self._pt_rows[cid] = list(range(nl)) + (sp_rows if cid_qp[cid] else [])
@@ -637,6 +686,11 @@ class HEVMExecutor:
               f"{sum(1 for o in self.prog.ops if o.opcode == OP_ENCODE)} "
               f"encodes: {held}; {self.n_keys} galois keys: {self.key_bytes} bytes",
               file=sys.stderr, flush=True)
+        # every upscale's multiplier on the device now: a graph window that
+        # would upload its own could not record at once (_seg_graph)
+        for op in self.ops:
+            if op.opcode in (OP_UPSCALE, OP_UPRESCALE):
+                self._getuk(op)
         self._plan_bootstrap_planes(cid_info, cid_qp)
 
     def _plaintext_plan(self):
@@ -700,26 +754,31 @@ class HEVMExecutor:
         by_grp = {}
         for cid, (_, nl, _) in enumerate(cid_info):
             by_grp.setdefault((nl, cid_qp[cid]), []).append(cid)
+        jobs = []                       # (rows, cids) of each batch
         for (nl, qp), cids in by_grp.items():
             rows_list = list(range(nl)) + (sp_rows if qp else [])
-            nrows = len(rows_list)
             i = 0
             while i < len(cids):
                 bsz = next(b for b in self.NTT_BATCH if b <= len(cids) - i)
-                chunk = cids[i: i + bsz]
-                prod = self.s.encoder.scaled_coeffs_batch(
-                    [cid_info[c][0] for c in chunk], [cid_info[c][2] for c in chunk])
-                blk = self.ev.encoded_residues(self.s.encoder, prod, rows_list)  # [bsz, nrows, N]
-                flat = blk.transpose(0, 1).reshape(bsz * nrows, -1).contiguous()
-                rows = [r for r in rows_list for _ in range(bsz)]
-                out = self.ev.ntt(flat, rows)
-                out = out.reshape(nrows, bsz, -1).transpose(0, 1)
-                for k, c in enumerate(chunk):
-                    planes = out[k].contiguous()
-                    self.plain_bytes += planes.nbytes
-                    for dst in cid_regs[c]:
-                        self.plains[dst] = planes
+                jobs.append((rows_list, cids[i: i + bsz]))
                 i += bsz
+
+        def encode(job):
+            return self.s.encoder.scaled_coeffs_batch(
+                [cid_info[c][0] for c in job[1]], [cid_info[c][2] for c in job[1]])
+
+        for (rows_list, chunk), prod in zip(jobs, host_ahead(encode, jobs)):
+            bsz, nrows = len(chunk), len(rows_list)
+            blk = self.ev.encoded_residues(self.s.encoder, prod, rows_list)  # [bsz, nrows, N]
+            flat = blk.transpose(0, 1).reshape(bsz * nrows, -1).contiguous()
+            rows = [r for r in rows_list for _ in range(bsz)]
+            out = self.ev.ntt(flat, rows)
+            out = out.reshape(nrows, bsz, -1).transpose(0, 1)
+            for k, c in enumerate(chunk):
+                planes = out[k].contiguous()
+                self.plain_bytes += planes.nbytes
+                for dst in cid_regs[c]:
+                    self.plains[dst] = planes
 
     def _pt_insert(self, cid, planes):
         """Add decoded planes to the LRU, then evict the oldest entries while
@@ -765,7 +824,7 @@ class HEVMExecutor:
             while i < len(cids):
                 bsz = next(b for b in self.PT_BATCH if b <= len(cids) - i)
                 chunk = cids[i: i + bsz]
-                idx = torch.tensor(chunk, dtype=torch.int64, device=self.s.device)
+                idx = upload(torch.tensor(chunk, dtype=torch.int64), self.s.device)
                 out = self.ev.decode_plain(self._pt_pool[idx], rows)
                 for k, cid in enumerate(chunk):
                     # a copy, so that an eviction frees its bytes
@@ -1175,32 +1234,55 @@ class HEVMExecutor:
     def _graphs(self, arg_meta, batch=None):
         """{window index: graph record} of the segment plan for arguments of
         this metadata and batch size (None: a single request; {} on the
-        CPU). The graphs are captured at first use and again whenever the
-        key set changed, or what the graphs read the keys from: without a
-        budget the resident device key tensors (GaloisStore.generation: a
-        graph reads the keys at the addresses it was captured with), under
-        one the arena (made again when the budget changes; an LRU eviction
-        changes nothing a graph reads, and a replaced key is staged)."""
+        CPU), captured at first use and again whenever what they were
+        captured for changed (_capture_key)."""
         if self.s.device.type != "cuda":
             return {}
         slot = "_captured" if batch is None else "_captured_batch"
-        keys = self.s.keys
-        arena = self._key_arena()
-        dep = (("arena", arena["serial"]) if arena is not None
-               else ("resident", keys.galois.generation))
-        meta = (tuple(tuple(m) for m in arg_meta), batch)
-        hit = getattr(self, slot)
-        if (hit is not None and hit[0] == meta and hit[1] is keys
-                and hit[2] is keys.galois and hit[3] == dep):
-            return hit[4]
+        want = self._capture_key("segments", arg_meta, batch)
+        graphs = self._held(slot, want)
+        if graphs is not None:
+            return graphs
         setattr(self, slot, None)             # free the old graphs first
         plan = self._segment_plan()
         graphs = (self._capture(plan, arg_meta) if batch is None
                   else self._capture(plan, arg_meta, batch))
-        # the key objects themselves (not ids): held here, they outlive the
-        # graphs that read them
-        setattr(self, slot, (meta, keys, keys.galois, dep, graphs))
+        setattr(self, slot, want + (graphs,))
         return graphs
+
+    def _capture_key(self, kind, arg_meta, batch=None):
+        """What graphs of `kind` ("segments": the segment plan's, "whole":
+        the whole-program graph) for arguments of arg_meta and a batch
+        size are captured for and read besides their own buffers:
+        ((kind, metadata, batch, where the keys are read from), the key
+        objects). A graph reads the keys from the resident device key
+        tensors (GaloisStore.generation: at the addresses it was captured
+        with) or, under a budget, from the arena (made again when the
+        budget changes; an LRU eviction changes nothing a graph reads, and
+        a replaced key is staged). The whole-program graph also reads the
+        conjugation key and the native bootstrap's planes it pinned, which
+        `drop_graphs` releases (graph_epoch). The key objects themselves,
+        not ids, are held with the graphs: they outlive the graphs that
+        read them."""
+        keys = self.s.keys
+        arena = self._key_arena()
+        dep = (("arena", arena["serial"]) if arena is not None
+               else ("resident", keys.galois.generation))
+        objs = (keys, keys.galois)
+        if kind == "whole":
+            bs = self.bootstrapper
+            dep += (bs.graph_epoch if isinstance(bs, NativeBootstrapper) else None,)
+            objs += (keys.conj,)
+        return (kind, tuple(tuple(m) for m in arg_meta), batch, dep), objs
+
+    def _held(self, slot, want):
+        """The graphs held in `slot` where they were captured for `want`
+        (_capture_key; key objects compared by identity), else None."""
+        hit = getattr(self, slot)
+        if (hit is not None and hit[0] == want[0]
+                and all(a is b for a, b in zip(hit[1], want[1]))):
+            return hit[2]
+        return None
 
     def _graph_window(self, info):
         """A window that runs as one graph on the card (and through
@@ -1321,6 +1403,8 @@ class HEVMExecutor:
             windows=len(plan), graphs=len(graphs),
             **{k: sum(g[k] for g in graphs.values())
                for k in ("warmup_s", "capture_s", "collectives")},
+            warmed=sum(g["warmed"] for g in graphs.values()),
+            nodes=sum(g["nodes"] for g in graphs.values()),
             ntt_in_graphs={k: sum(g["ntt"][k] for g in graphs.values())
                            for k in ntt_kernel.RECORDED},
             key_slots=0 if arena is None else len(arena["held"]),
@@ -1340,16 +1424,19 @@ class HEVMExecutor:
         """Window wi's plaintext registers grouped by decode row tuple, in
         row-tuple order (reference _seg_pt_groups): [(rows, regs, index)],
         index the registers' pool ids as a device tensor. Made once per
-        preprocess, before any capture: nothing uploads under capture."""
+        preprocess, before any capture, with each group's decode tables
+        (Evaluator.decode_tables): nothing uploads under capture."""
         groups = self._pt_groups.get(wi)
         if groups is None:
             by_rows = {}
             for r in info["plain_regs"]:
                 by_rows.setdefault(tuple(self._pt_rows[self._pt_cid[r]]), []).append(r)
             groups = self._pt_groups[wi] = [
-                (rows, regs, torch.tensor([self._pt_cid[r] for r in regs],
-                                          dtype=torch.int64, device=self.s.device))
+                (rows, regs, upload(torch.tensor([self._pt_cid[r] for r in regs],
+                                                 dtype=torch.int64), self.s.device))
                 for rows, regs in sorted(by_rows.items())]
+            for rows, regs, _ in groups:
+                self.ev.decode_tables(rows, len(regs))
         return groups
 
     def _seg_body(self, wi, info, ciphers, meta):
@@ -1379,33 +1466,45 @@ class HEVMExecutor:
 
     def _seg_graph(self, wi, info, in_meta, ins, stream, pool):
         """Capture window wi's _seg_body into one CUDA graph over the static
-        inputs `ins` (aligned with info["ins"]). The window first runs once
-        eagerly on the capture stream over the same inputs: that fills the
-        Evaluator's and the executor's device caches (the decode tables
-        too), since no upload from host memory may run under capture.
+        inputs `ins` (aligned with info["ins"]). No upload from host memory
+        may run under capture, so the window's device caches (the
+        Evaluator's, the executor's, the decode tables) must be full before
+        it records. It records at once; a cache that would fill under
+        capture stops the recording before the copy (UploadUnderCapture),
+        and then, or always over a mesh (every rank must make the same
+        collectives), the window first runs once eagerly on the capture
+        stream over the same inputs, which fills them, and records again.
         Returns the record: graph, ins, outs (static outputs, aligned with
-        info["outs"]), and seconds (capture_s: capture and instantiation)."""
+        info["outs"]), warmup_s (0 where the window recorded at once),
+        capture_s (recording and instantiation) and nodes."""
         def body():
             return self._seg_body(wi, info, dict(zip(info["ins"], ins)), dict(in_meta))
 
-        t0 = time.perf_counter()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            body()
-        stream.synchronize()
-        t1 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()       # instantiated as the capture ends
         shard = self.ev.shard
         gathers = shard.gathers if shard is not None else 0
-        ntt0 = dict(ntt_kernel.RECORDED)
         # over a mesh the graph records NCCL all-gathers, whose process
         # group's watchdog thread queries CUDA events while this thread
         # captures: only this thread's calls must be capture-safe
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="global" if shard is None else "thread_local"):
-            outs = body()
-        t2 = time.perf_counter()
-        return dict(graph=graph, ins=ins, outs=outs, warmup_s=t1 - t0, capture_s=t2 - t1,
+        mode = "global" if shard is None else "thread_local"
+        ntt0 = dict(ntt_kernel.RECORDED)
+        t0 = time.perf_counter()
+        rec, warmup_s = None, 0.0
+        if shard is None:
+            try:
+                rec = graphs.record(body, stream, pool, mode)
+            except UploadUnderCapture:
+                ntt_kernel.RECORDED.update(ntt0)     # the dropped recording's
+        if rec is None:
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                body()
+            stream.synchronize()
+            # the dropped recording's seconds are counted here too
+            warmup_s = time.perf_counter() - t0
+            rec = graphs.record(body, stream, pool, mode)
+        return dict(graph=rec["graph"], ins=ins, outs=rec["out"], warmup_s=warmup_s,
+                    warmed=warmup_s > 0,
+                    capture_s=rec["capture_s"] + rec["instantiate_s"], nodes=rec["nodes"],
                     collectives=(shard.gathers - gathers) if shard is not None else 0,
                     ntt={k: v - ntt0[k] for k, v in ntt_kernel.RECORDED.items()})
 
@@ -1506,6 +1605,187 @@ class HEVMExecutor:
         rows = [bs.bootstrap(data[b], nl, sc, target) for b in range(batch)]
         return torch.stack([r[0] for r in rows]), rows[0][1]
 
+    # --------------------------------------------------------- whole program
+    def whole_path(self):
+        """(path, why) of a jit=True request (module docstring): the JAX
+        package's rule (`dacapo_tpu/vm/executor.py` run_encrypted), then the
+        port's blockers. ("per_op", "debug") with debug on; ("segment",
+        why) where the JAX package falls back too, "streaming" (plaintexts
+        in the compact pool) and "oracle" (the emulated bootstrap, host-RNG
+        or device), and for the port's own blockers: "key_budget" (the keys
+        come through the key store's LRU), "mesh" (the keys are split over
+        a mesh) and "dropped_group" (a native bootstrap signature the plane
+        bound of the segment path cannot pin, NativeBootstrapper.
+        graph_plan); else ("whole", None), or ("whole", "cpu") off the card,
+        where the same walk runs eagerly."""
+        if self.debug:
+            return "per_op", "debug"
+        if self._streaming:
+            return "segment", "streaming"
+        bs = self.bootstrapper
+        if isinstance(bs, EmulatedBootstrapper):
+            return "segment", "oracle"
+        if self.s.keys.galois.budget is not None:
+            return "segment", "key_budget"
+        if self._mesh is not None:
+            return "segment", "mesh"
+        if isinstance(bs, NativeBootstrapper):
+            budget = bs.plane_budget
+            if self._path_budgets is not None:
+                budget = self._path_budgets["segment"][1] if self.plane_bound else None
+            sigs = [(nl, sc) for nl, sc, _ in self._boot_sequence()]
+            if any(bs.graph_plan(sigs, budget).values()):
+                return "segment", "dropped_group"
+        return "whole", None if self.s.device.type == "cuda" else "cpu"
+
+    def _whole_body(self, datas, arg_meta, boot):
+        """The whole program as one function of the argument tensors
+        `datas` ((nl, scale) each in arg_meta): the segment plan's windows
+        in order, each graph window's _seg_body and each tiny window's
+        _exec_stream, and every boot window's boot(data, nl, scale,
+        target) inline. Returns (outputs, their (nl, scale))."""
+        ciphers = dict(enumerate(datas))
+        meta = dict(enumerate(tuple(m) for m in arg_meta))
+        for wi, info in enumerate(self._segment_plan()):
+            if info["kind"] == "boot":
+                op = info["ops"][0]
+                nl, sc = meta[op.lhs]
+                ciphers[op.dst], meta[op.dst] = boot(ciphers[op.lhs], nl, sc, op.rhs)
+            elif self._graph_window(info):
+                self._seg_body(wi, info, ciphers, meta)
+            else:
+                self._exec_stream(info["ops"], ciphers, meta, info["outs"])
+            for r in info["dead"]:
+                ciphers.pop(r, None)
+        return [ciphers[r] for r in self.res_dst], [meta[r] for r in self.res_dst]
+
+    def precompile_whole(self, arg_meta=None):
+        """Capture the whole-program CUDA graph before the first jit=True
+        request (HEVM.load does, where whole_path allows it), for arguments
+        of `arg_meta` (default: the compiled ones). Returns the number of
+        graphs: 1, or 0 on the CPU, where the walk runs eagerly. Raises
+        where whole_path sends the requests elsewhere, or if the capture
+        fails."""
+        path, why = self.whole_path()
+        if path != "whole":
+            raise RuntimeError(f"jit=True requests take the {path} path here: {why}")
+        if self.s.device.type != "cuda":
+            return 0
+        self._whole_graph(arg_meta or self._arg_meta())
+        return 1
+
+    def _whole_graph(self, arg_meta):
+        """The whole-program graph's record for arguments of arg_meta,
+        captured at first use and again whenever what it was captured for
+        changed (_capture_key): a key replaced, other argument metadata,
+        preprocess run again, segment graphs captured in its place, and
+        the native bootstrapper's graphs dropped (the per-op path, a
+        segment request's boot graphs), which released its pinned
+        planes."""
+        rec = self._held("_captured", self._capture_key("whole", arg_meta))
+        return rec if rec is not None else self._capture_whole(arg_meta)
+
+    def _capture_whole(self, arg_meta):
+        """Record _whole_body into one CUDA graph in a memory pool of its
+        own, over zeroed static inputs. The segment graphs and the native
+        bootstrap's graphs are freed first (a jit=True executor holds no
+        other single-request graphs). One eager warm-up runs the walk first
+        on the capture stream, each native bootstrap with its host
+        bookkeeping (as `warm` does, the count and the request's position
+        are restored after), and pins each signature's planes as it ran;
+        then the walk is recorded with each bootstrap's device work
+        (NativeBootstrapper._bootstrap), noting each one's signature and
+        NTT calls for the replays' bookkeeping. Nothing uploads under
+        capture (crypto/params.upload raises: a failed capture raises).
+        capture_stats["whole"] gets the graph's nodes, windows and
+        bootstraps, warm-up, recording and instantiation seconds, pool
+        bytes and NTT calls recorded."""
+        self._captured = None                 # free the old graphs first
+        bs = self.bootstrapper if isinstance(self.bootstrapper, NativeBootstrapper) else None
+        if bs is not None:
+            bs.drop_graphs()
+            self._boot_dep = None
+        dev, n = self.s.device, self.s.ctx.n
+        stream = torch.cuda.Stream(dev)
+        ins = [torch.zeros((2, nl, n), dtype=torch.int32, device=dev) for nl, _ in arg_meta]
+        t0 = time.perf_counter()
+        saved = (bs.calls, bs._pos) if bs is not None else None
+
+        def warm_boot(data, nl, sc, target):
+            out = NativeBootstrapper.bootstrap(bs, data, nl, sc, target)
+            bs._pin((int(nl), float(sc)))
+            return out
+
+        stream.wait_stream(torch.cuda.current_stream())
+        try:
+            with torch.cuda.stream(stream):
+                self._whole_body(ins, arg_meta, warm_boot)
+        finally:
+            if bs is not None:
+                bs.calls, bs._pos = saved
+        stream.synchronize()
+        warmup_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        boots = []
+        ntt0 = dict(ntt_kernel.RECORDED)
+
+        def rec_boot(data, nl, sc, target):
+            b0 = dict(ntt_kernel.RECORDED)
+            out = bs._bootstrap(data, nl, sc, target)
+            boots.append(((int(nl), float(sc), int(target)),
+                          {k: v - b0[k] for k, v in ntt_kernel.RECORDED.items()}))
+            return out
+
+        rec = graphs.record(lambda: self._whole_body(ins, arg_meta, rec_boot), stream,
+                            torch.cuda.graph_pool_handle())
+        outs, out_meta = rec["out"]
+        total = {k: v - ntt0[k] for k, v in ntt_kernel.RECORDED.items()}
+        whole = dict(
+            graph=rec["graph"], ins=ins, outs=outs, out_meta=out_meta, boots=boots,
+            # the windows' NTT calls; each bootstrap's go to the bootstrapper
+            ntt={k: v - sum(b[k] for _, b in boots) for k, v in total.items()})
+        # after the warm-up, which may have made keys
+        self._captured = self._capture_key("whole", arg_meta) + (whole,)
+        self.capture_stats = {"whole": dict(
+            graphs=1, windows=len(self._segment_plan()), bootstraps=len(boots),
+            signatures=[list(sig) for sig in dict.fromkeys(sig for sig, _ in boots)],
+            nodes=rec["nodes"], warmup_s=warmup_s, capture_s=rec["capture_s"],
+            instantiate_s=rec["instantiate_s"],
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved, ntt_in_graphs=total)}
+        return whole
+
+    def _run_whole(self, arg_cts):
+        """A jit=True request on the whole-program path. On the card: copy
+        the arguments into the graph's static inputs, replay it once, and
+        keep, for each bootstrap it holds, the host bookkeeping a replay of
+        its own graph keeps (NativeBootstrapper.count_replay); the outputs
+        are cloned. On the CPU the walk runs eagerly, each native bootstrap
+        through `bootstrap` (counted eager, "cpu"). `last_bootstraps`
+        counts the request's bootstraps, as the segment path does."""
+        self._use_path("segment")
+        arg_meta = [(nl, sc) for _, nl, sc in arg_cts]
+        bs = self.bootstrapper
+        counts = self.last_bootstraps = dict(replayed=0, eager={})
+        if self.s.device.type != "cuda":
+            calls = getattr(bs, "calls", 0)
+            outs, out_meta = self._whole_body([d for d, _, _ in arg_cts], arg_meta,
+                                              None if bs is None else bs.bootstrap)
+            if isinstance(bs, NativeBootstrapper):
+                self._count_boots(counts, "cpu", bs.calls - calls, 0)
+            return [o.clone() for o in outs], out_meta
+        rec = self._whole_graph(arg_meta)
+        for buf, (data, _, _) in zip(rec["ins"], arg_cts):
+            buf.copy_(data)
+        rec["graph"].replay()
+        self.replays += 1
+        for k, v in rec["ntt"].items():
+            self.replayed_ntt[k] += v
+        for (nl, sc, _), ntt in rec["boots"]:
+            bs.count_replay(nl, sc, ntt)
+        counts["replayed"] = len(rec["boots"])
+        return [o.clone() for o in rec["outs"]], list(rec["out_meta"])
+
     def set_profiling(self, flag=True):
         """Per-window wall time of the segment path, with a synchronize after
         every window (which perturbs the total a little): each request leaves
@@ -1555,18 +1835,31 @@ class HEVMExecutor:
 
         jit: "auto"/"segment" (the default) runs the segment plan, on the
         card as CUDA graphs (captured at first use unless
-        precompile_segments ran), on the CPU eagerly; True does the same
-        (module docstring); False dispatches per op, as does every request
-        with debug on (setDebug)."""
-        if self.debug:
-            jit = False      # the trace prints per-op host metadata
-        if jit is True or jit in ("auto", "segment"):
-            outs = self._run_segmented(arg_cts)
-        elif jit is False:
-            outs = self._run_trace(arg_cts)
-        else:
+        precompile_segments ran), on the CPU eagerly; False dispatches per
+        op; True asks for the whole program as one function, the JAX
+        package's rule: the whole-program path (one CUDA graph a request on
+        the card, captured at first use unless precompile_whole ran; on the
+        CPU the same walk eagerly) where the executor does not stream its
+        plaintexts and the program has no bootstrap or only native ones,
+        else the segment path, as the JAX package falls back; the port
+        also sends it to the segment path under a galois-key budget, over a
+        mesh, and where the plane bound cannot pin every bootstrap
+        signature (whole_path). With debug on (setDebug) every request
+        dispatches per op. `last_path` holds the request's (path, why):
+        why is None where the path is the one asked for (whole_path's
+        reasons otherwise, "debug" with debug on)."""
+        if not (isinstance(jit, bool) or jit in ("auto", "segment")):
             raise ValueError(f"jit must be 'auto', 'segment', True or False, not {jit!r}")
-        self._last_outputs = outs
+        if self.debug:
+            path, why = "per_op", "debug"    # the trace prints per-op host metadata
+        elif jit is True:
+            path, why = self.whole_path()
+        else:
+            path, why = ("per_op" if jit is False else "segment"), None
+        self.last_path = (path, why)
+        run = dict(whole=self._run_whole, segment=self._run_segmented,
+                   per_op=self._run_trace)[path]
+        self._last_outputs = outs = run(arg_cts)
         return outs
 
     def run_encrypted_batch(self, arg_cts, mesh=None):

@@ -155,7 +155,8 @@ def test_pinned_planes_never_dropped():
     """Under a bound of 0 bytes (only the running signature's planes stay)
     the pinned planes of A stay through B's bootstraps, which drop and
     encode again only B's; drop_graphs gives A's planes back to its group,
-    and the bound then drops them."""
+    and the bound then drops them, keeping only the group of B, the
+    sequence's next signature."""
     seq = [A, B]
     bs = _shape_bootstrapper(0, seq)
     _stand_in_graph(bs, A, 1)
@@ -173,8 +174,21 @@ def test_pinned_planes_never_dropped():
     bs.drop_graphs()
     assert not bs._pinned and not bs._graphs and len(bs._groups[A]) == len(pinned)
     bs.set_plane_budget(0)
-    assert not bs._groups
+    assert bs._sequence[bs._pos] == B and list(bs._groups) == [B]
     assert not any(key in cache for cache, key, _, _ in pinned.values())
+
+
+def test_graph_plan_leaves_out_signatures_outside_the_sequence():
+    """A signature that ran before the sequence was planned (another
+    program on the same bootstrapper) runs in none of its requests: the
+    plan neither lists it nor keeps room for its planes, so a bound that
+    holds the sequence's signature alone pins it."""
+    bs = _shape_bootstrapper(None, [A, B])
+    assert set(bs._sig_planes) == {A, B}
+    need = sum(p[2] for p in bs._sig_planes[A].values())
+    bs.set_plane_budget(need, [A, A])
+    assert bs.graph_plan() == {A: None}
+    assert bs.graph_plan([B]) == {A: "dropped_group", B: "dropped_group"}
 
 
 def test_capture_needs_the_card():

@@ -103,13 +103,15 @@ def test_ntt_launches_in_graphs_counted_on_device(vm):
     assert seg_dev == dev
     assert all(seg_host[k] < dev[k] for k in dev)      # the replayed calls are not the wrapper's
     # a capture records kernels and launches none: capturing the program's
-    # one window again counts its eager warm-up alone, one per-op request
+    # one window again, its device caches full, records at once with no
+    # eager warm-up, and the wrapper counts nothing
     assert len(ex._segment_plan()) == len(graphs) == 1
     for k in ntt_kernel.LAUNCHES:
         ntt_kernel.LAUNCHES[k] = 0
     ex._captured = None
     ex.precompile_segments()
-    assert ntt_kernel.LAUNCHES == host
+    assert ex.capture_stats["warmed"] == 0 and ex.capture_stats["warmup_s"] == 0
+    assert ntt_kernel.LAUNCHES == dict.fromkeys(host, 0)
 
 
 @pytest.mark.cuda

@@ -135,19 +135,23 @@ def test_segment_outputs_bit_equal_to_jax_per_op(pair):
 
 
 def test_jit_true_follows_the_jax_rule(pair, monkeypatch):
-    """jit=True takes the segment path: the JAX rule for the bootstrapped
-    program; for the MLP (one window) the whole-program function is not
-    ported. The MLP's outputs stay bit-equal on the same ciphertext."""
+    """jit=True follows the JAX rule: the bootstrapped program (the oracle)
+    takes the segment path and says why; the MLP (no bootstrap) takes the
+    whole-program path, eagerly on the CPU, its outputs bit-equal on the
+    same ciphertext."""
     port = pair["port"]
     calls = []
-    seg = port._run_segmented
-    monkeypatch.setattr(port, "_run_segmented", lambda a: calls.append(1) or seg(a))
+    for name in ("_run_segmented", "_run_whole"):
+        run = getattr(port, name)
+        monkeypatch.setattr(port, name, lambda a, name=name, run=run: calls.append(name) or run(a))
     outs, _ = port.run_encrypted(pair["arg_cts"], jit=True)
-    assert calls == [1]
     if pair["name"] == "mlp":
+        assert calls == ["_run_whole"] and port.last_path == ("whole", "cpu")
         assert len(port._segment_plan()) == 1
         for g, w in zip(outs, pair["ref_cts"]):
             np.testing.assert_array_equal(g.numpy().view(np.uint32), w)
+    else:
+        assert calls == ["_run_segmented"] and port.last_path == ("segment", "oracle")
 
 
 def test_last_outputs_survive_the_next_request(pair):
