@@ -200,12 +200,26 @@
     ciphertexts byte-equal; load seconds by part, device bytes (keys, pool,
     diagonals, peaks); then the NTT at every batch size the load and the
     requests gave it, bit-equal to the plain NTT in both modes;
-14. the native artifact core (vm/native.py, csrc/hevm_core.cpp), built
+14. the native_n16 phase (serve_native_n16), after every earlier VM is
+    freed: native bootstrapping on the 128-bit-secure tpu_n16 (N = 2^16),
+    radix 8 (bootstrap_native.native_radix), K 25 and degree 40, the
+    working scale EvalMod returns to and SlotToCoeff's first level on it
+    (bootstrap_native.WIDE_SLOTS): HEVM("tpu_n16") on a fresh keyset loads
+    the committed artifacts/deep_dacapo40_tpu_n16 (depth 6, one bootstrap
+    to level 11; its .hevm and .cst by SHA-256, its signature, 398 keys and
+    1,916 diagonals + 56 constants by expected.json's dry plan), its ~35 GB
+    of keys kept in memory (HEVM(save_keys=False): the machine takes 45 GiB
+    of writes a run); two timed segment requests, one profiled,
+    one per op and one whole-program request (jit=True), the same
+    ciphertext each: byte-equal, RMS <= 1e-4, one native bootstrap each
+    (replayed, or eager "per_op"), no key made, no plain NTT; then the NTT
+    at every batch size the phase launched, bit-equal to the plain NTT;
+15. the native artifact core (vm/native.py, csrc/hevm_core.cpp), built
     with g++ before the first phase: every .hevm and .cst the phases read
     and write goes through it (its calls are counted and must be nonzero;
     its read time against the Python reader is
     scripts/hevm_read_timing.py's);
-15. prints the kernel table as one JSON line (launches: the profiled
+16. prints the kernel table as one JSON line (launches: the profiled
     ResNet request's, counted on the device; every path's under
     launches_by_path, and per ciphertext; the batch shapes' times), then
     the card's name and power limit, then {"ok": true, "device": {...}} as
@@ -1530,7 +1544,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     Returns (results, the NTT calls of the profiled request on the device,
     those of the profiled standalone bootstrap)."""
     from types import SimpleNamespace
-    from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper
+    from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper, native_radix
     from dacapo_tpu_torch.crypto.scheme import Ciphertext
     from dacapo_tpu_torch.models.deep import deep_golden
     with open(os.path.join(NATIVE_ART, "expected.json")) as f:
@@ -1542,7 +1556,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     torch.cuda.synchronize()
     out["keygen_s"] = time.perf_counter() - t0
     bs = vm.scheme._native_bs
-    radix = 7 if vm.scheme.ctx.config.n_slots >= (1 << 14) else 5     # the runner's rule
+    radix = native_radix(vm.scheme.ctx.config.n_slots)                # the runner's rule
     if not isinstance(bs, NativeBootstrapper) or bs.cfg.radix != radix:
         raise AssertionError(f"HEVM('tpu_n15b') built {bs!r}, not the radix-{radix} "
                              "native bootstrapper")
@@ -2086,7 +2100,8 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
     native phase's keyset (which holds the bootstrap's 157 rotation keys
     and the conjugation key) makes the program's missing rotation keys
     without loading it (HEVM.make_keys); the keyset is saved in two halves,
-    the server's without the secret (save_keyset(parts=...)). With every VM
+    the server's without the secret (save_keyset(parts=...); the key files
+    the native phase wrote are hard-linked into it, not written again). With every VM
     of the earlier phases and the full VM freed, a server HEVM loads the
     program (no s_ntt; the load warms each bootstrap signature, which makes
     the diagonals, captures the segment graphs and the bootstrap graphs of
@@ -2142,7 +2157,14 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
     halves = {}
     for half, parts in (("server", ("public", "eval")), ("client", ("secret", "public"))):
         d = halves[half] = os.path.join(work, f"resnet_n15b_{half}")
-        keymod.save_keyset(full.scheme.keys, d, parts=parts)
+        if half == "server":
+            # the keys the native phase wrote are linked, not written again
+            # (the machine takes 45 GiB of writes a run); save_keyset writes
+            # the rest
+            os.makedirs(os.path.join(d, "galois"))
+            for f in os.listdir(os.path.join(keydir, "galois")):
+                os.link(os.path.join(keydir, "galois", f), os.path.join(d, "galois", f))
+        keymod.save_keyset(full.scheme.keys, d, parts=parts, skip_existing=True)
         shutil.copyfile(os.path.join(keydir, "params.json"), os.path.join(d, "params.json"))
     t3 = sync()
     keys = out["keys"] = dict(
@@ -2823,6 +2845,209 @@ def profile_ops(torch, nk, ntt_mod):
                 top_level_us=rows, table=table, launches=launches), launches
 
 
+NATIVE_N16_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "deep_dacapo40_tpu_n16")
+
+
+def serve_native_n16(np, torch, HEVM, nk, ntt_mod, params, keydir):
+    """The native_n16 phase: native bootstrapping on the 128-bit-secure
+    N = 2^16 profile. HEVM("tpu_n16") (full mode; the native bootstrapper
+    with radix 8, K 25 and degree 40, bootstrap_native.native_config) on a
+    fresh keyset loads the committed artifacts/deep_dacapo40_tpu_n16 (the
+    deep circuit at depth 6, one bootstrap to level 11, compiled by the JAX
+    compiler against profiled_TPU_n16_native.json; its .hevm and .cst by
+    SHA-256): the load makes the ~400 galois keys and the planes in its
+    warm-up, keeps the keys in memory (save_keys=False: nothing on disk) and
+    captures the segment graphs and the bootstrap's graph. Then
+    TIMED_REQUESTS timed segment requests, one profiled (NTT calls of each
+    mode on the device), the same request per op (jit=False) and on the
+    whole-program path (jit=True: one CUDA graph with the bootstrap inline,
+    captured as HEVM(jit=True).load does; ("whole", None)), each of these
+    with the key generator's state restored, so each encrypts the same
+    ciphertext. Each: RMS against deep_golden <= 1e-4, the bootstrap count
+    of expected.json (replayed or eager, and why, as the executor's plan
+    says), no key made, no plain NTT call, the NTT kernel in both modes (the
+    wrapper's launches plus the replayed graphs' records); the outputs
+    byte-equal. Then the NTT at every batch size the phase launched,
+    bit-equal to the plain NTT in both modes. Returns
+    (results, the profiled request's NTT calls on the device, the NTT
+    check)."""
+    from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper, native_config
+    from dacapo_tpu_torch.models.deep import deep_golden
+    with open(os.path.join(NATIVE_N16_ART, "expected.json")) as f:
+        expected = json.load(f)
+    cst, hevm = (os.path.join(NATIVE_N16_ART, f"Deep.{x}") for x in ("cst", "hevm"))
+    out = dict(hevm_sha256=sha256_file(hevm), cst_sha256=sha256_file(cst))
+    if (out["hevm_sha256"] != expected["hevm_sha256"]
+            or out["cst_sha256"] != expected["cst_sha256"]):
+        raise AssertionError(f"the tpu_n16 program differs from expected.json: {out}")
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync()
+    # the keys stay in memory: the smoke's machine takes 45 GiB of writes a
+    # run, the earlier phases' keysets ~30 of them, and this keyset is ~35 GB
+    # (scripts/torch_bootstrap_n16.py times writing it)
+    vm = HEVM("tpu_n16", keyset_dir=keydir, save_keys=False)
+    out["keygen_s"] = sync() - t0
+    bs = vm.scheme._native_bs
+    cfg = vm.scheme.ctx.config
+    if (not isinstance(bs, NativeBootstrapper) or bs.cfg != native_config(cfg)
+            or dataclasses.asdict(bs.cfg) != expected["bootstrap_config"]
+            or bs.rows_left() != expected["bootstrap_rows_left"]):
+        raise AssertionError(f"HEVM('tpu_n16') built {bs!r}, not {expected['bootstrap_config']}")
+    shapes = NttShapes()        # stopped after the last request
+    shapes.start()
+    try:
+        t0 = sync()
+        vm.load(cst, hevm)
+        out["load_s"] = sync() - t0
+        ex = vm.executor
+        keys = vm.scheme.keys
+        planes = bs.cached_planes()
+        out.update(load_parts_s=vm.load_seconds, instructions=len(vm.prog.ops),
+                   galois_keys=len(keys.galois), galois_keys_counted=ex.n_keys,
+                   key_bytes_counted=ex.key_bytes, key_budget=keys.galois.budget,
+                   conj_key=keys.conj is not None, warmup=ex.bootstrap_stats, planes=planes,
+                   plane_budget=bs.plane_budget, capture=ex.capture_stats,
+                   streaming=ex.streaming, after_load_bytes=torch.cuda.memory_allocated(),
+                   peak_load_bytes=torch.cuda.max_memory_allocated(),
+                   keyset_bytes=sum(os.path.getsize(os.path.join(r, f))
+                                    for r, _, fs in os.walk(keydir) for f in fs))
+        log(f"[native n16] keygen {out['keygen_s']:.3f} s; load {out['load_s']:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in vm.load_seconds.items())
+            + f"); {out['instructions']} instructions; {len(keys.galois)} galois keys + "
+            f"conjugation key ({ex.n_keys} counted, {ex.key_bytes} bytes, budget "
+            f"{keys.galois.budget}); keyset on disk {out['keyset_bytes']} bytes; bootstrap "
+            f"signatures warmed {ex.bootstrap_stats['signatures']}, planes {planes} under a "
+            f"bound of {bs.plane_budget} bytes; graphs {ex.capture_stats}; "
+            f"{out['after_load_bytes']} bytes allocated after load, peak "
+            f"{out['peak_load_bytes']}")
+        plan_keys = expected["plan"]
+        want_planes = expected["plan"]["planes_after_signature"][-1]
+        if (ex.bootstrap_stats["signatures"] != expected["boot_signatures"]
+                or len(keys.galois) != plan_keys["galois_keys"] - 1 or keys.conj is None
+                or {k: planes[k] for k in ("diagonals", "diagonal_bytes", "constants",
+                                           "constant_bytes")}
+                != {k: want_planes[k] for k in ("diagonals", "diagonal_bytes", "constants",
+                                                "constant_bytes")}):
+            raise AssertionError(f"the tpu_n16 load made {len(keys.galois)} keys and {planes}; "
+                                 f"expected.json's plan: {expected['plan']}")
+        if (ex.streaming or keys.galois.budget is not None or out["keyset_bytes"]
+                or not {"bootstrap_warmup", "capture", "boot_capture"} <= set(vm.load_seconds)):
+            raise AssertionError(f"the tpu_n16 load: {vm.load_seconds}, streaming "
+                                 f"{ex.streaming}, key budget {keys.galois.budget}")
+        plan = out["boot_plan"] = [[wi, list(sig), why] for wi, sig, why in ex.boot_plan()]
+        if any(why is not None for *_, why in plan):
+            raise AssertionError(f"the tpu_n16 program's bootstraps are not all graphs: {plan}")
+
+        x = np.random.default_rng(expected["input_seed"]).uniform(*expected["input_range"],
+                                                                  cfg.n_slots)
+        want = deep_golden(x, expected["depth"])
+        rng = vm.scheme.keygen.rng.bit_generator
+        state, first = rng.state, None
+
+        def request(kind, want_path, want_boots):
+            nonlocal first
+            rng.state = state           # every request encrypts the same ciphertext
+            reset_counts(nk, ntt_mod)
+            calls0, n_keys0, ntt0 = bs.calls, len(keys.galois), graph_ntt(vm.executor)
+            launches0 = vm.executor.replays
+            torch.cuda.reset_peak_memory_stats()
+            t0 = sync()
+            vm.setInput(0, x)
+            vm.run()
+            res = vm.getOutput()[0]
+            e = vm.executor
+            r = dict(request_s=sync() - t0, path=list(e.last_path), boots=e.last_bootstraps,
+                     bootstraps=bs.calls - calls0, graph_launches=e.replays - launches0,
+                     eager_ntt_launches=dict(nk.LAUNCHES),
+                     ntt_launches={k: nk.LAUNCHES[k] + v - ntt0[k]
+                                   for k, v in graph_ntt(e).items()},
+                     plain_ntt_calls=dict(ntt_mod.CALLS), keys_made=len(keys.galois) - n_keys0,
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     rms=float(np.sqrt(np.mean((res - want) ** 2))))
+            outs = [c.clone() for c in e._last_outputs[0]]
+            if first is None:
+                first = outs
+            r["equals_first"] = all(torch.equal(a, b) for a, b in zip(outs, first))
+            log(f"[native n16] {kind} request {r['request_s']:.3f} s: path {r['path']}, "
+                f"{r['bootstraps']} native bootstraps ({r['boots']}), {r['graph_launches']} "
+                f"graph launches, NTT calls {r['ntt_launches']} (launched outside graphs "
+                f"{r['eager_ntt_launches']}), plain NTT calls {r['plain_ntt_calls']}, keys made "
+                f"{r['keys_made']}, rms {r['rms']:.4e} (bar {expected['rms_bar']}), peak "
+                f"{r['peak_bytes']} bytes; output ciphertexts byte-equal to the first "
+                f"request's: {r['equals_first']}")
+            if res.shape != x.shape or not np.isfinite(res).all():
+                raise AssertionError(f"bad output of the tpu_n16 program ({kind})")
+            if not r["rms"] <= expected["rms_bar"]:
+                raise AssertionError(f"tpu_n16 deep program rms {r['rms']} > "
+                                     f"{expected['rms_bar']} ({kind})")
+            if (r["path"] != want_path or r["bootstraps"] != expected["bootstraps"]
+                    or r["boots"] != want_boots):
+                raise AssertionError(f"the tpu_n16 {kind} request: path {r['path']}, "
+                                     f"bootstraps {r['bootstraps']} {r['boots']}")
+            if (min(r["ntt_launches"].values()) <= 0 or any(r["plain_ntt_calls"].values())
+                    or r["keys_made"] or not r["equals_first"]):
+                raise AssertionError(f"the tpu_n16 {kind} request: {r}")
+            return r
+
+        n_boot = expected["bootstraps"]
+        replayed = dict(replayed=n_boot, eager={})
+        requests = out["requests"] = [request(f"segment {i}", ["segment", None], replayed)
+                                      for i in range(TIMED_REQUESTS)]
+        out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
+
+        def profiled():
+            vm.setInput(0, x)
+            vm.run()
+
+        prof = out["profiled_request"] = profile_request(torch, profiled, "native n16", ex, nk,
+                                                         ntt_mod, cpu=False,
+                                                         trace_loss_ok=True)
+        if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+            raise AssertionError(f"the profiled tpu_n16 request: NTT {prof['ntt_launches']}, "
+                                 f"plain {prof['plain_ntt_calls']}")
+
+        vm.jit = False
+        out["per_op"] = request("per-op", ["per_op", None],
+                                dict(replayed=0, eager={"per_op": n_boot}))
+        # the whole-program path (jit=True): its one graph, with the
+        # bootstrap inline, captured as HEVM(jit=True).load does
+        # (precompile_whole), in the segment graphs' place
+        vm.jit = True
+        if ex.whole_path() != ("whole", None):
+            raise AssertionError(f"the tpu_n16 program's whole path: {ex.whole_path()}")
+        t0 = sync()
+        ex.precompile_whole()
+        out["whole_capture_s"] = sync() - t0
+        out["whole_capture"] = ex.capture_stats.get("whole")
+        log(f"[native n16] whole-program graph captured in {out['whole_capture_s']:.3f} s: "
+            f"{out['whole_capture']}")
+        out["whole"] = request("whole-program", ["whole", None], replayed)
+        if out["whole"]["graph_launches"] != 1:
+            raise AssertionError(f"the tpu_n16 whole-program request: {out['whole']}")
+    finally:
+        shapes.stop()
+        vm.jit = "auto"
+    out["peak_bytes"] = max([out["peak_load_bytes"]] + [r["peak_bytes"] for r in requests]
+                            + [out["per_op"]["peak_bytes"], out["whole"]["peak_bytes"]])
+    log(f"[native n16] segment median of {TIMED_REQUESTS} {out['request_median_s']:.3f} s, "
+        f"per op {out['per_op']['request_s']:.3f} s, whole program "
+        f"{out['whole']['request_s']:.3f} s; the three byte-equal; profiled: device busy "
+        f"{prof['device_busy_s']} s of {prof['wall_s']:.4f} s (idle share "
+        f"{prof['idle_share']}), NTT calls on the device {prof['ntt_launches']}; peak "
+        f"{out['peak_bytes']} bytes")
+    del vm, ex, bs, keys
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n16", sorted(shapes.sizes),
+                                "native n16")
+    return out, prof["ntt_launches"], check
+
+
 def main():
     import numpy as np
     import torch
@@ -2961,6 +3186,12 @@ def main():
             "resnet_native", serve_resnet_native, np, torch, HEVM, nk, ntt_mod, params,
             keys_n15b.name, work.name, (deep_whole["files"], deep_whole["blobs"]))
     keys_n15b.cleanup()
+    # the native bootstrap at N = 2^16 on its own keyset (~35 GB written by
+    # the full VM's load), every earlier VM freed
+    with tempfile.TemporaryDirectory(prefix="hevm_keys_n16_") as keys_n16:
+        report["native_n16"], by_path["native_deep_tpu_n16_request"], \
+            report["ntt_batch"]["native_tpu_n16"] = timed(
+                "native_n16", serve_native_n16, np, torch, HEVM, nk, ntt_mod, params, keys_n16)
     report["native_core"] = native_core(hevm_core)
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     log("[time] parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in part_seconds.items()))

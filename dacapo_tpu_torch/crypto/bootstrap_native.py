@@ -53,6 +53,7 @@ import math
 import time
 from dataclasses import dataclass
 from fractions import Fraction
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -95,6 +96,33 @@ class BootstrapConfig:
 # 3.7e-4 (h = 192, N = 2^15); 2^-30 a request would take K = 31 at degree 52,
 # one level more than the compiled program leaves the bootstrap.
 OVERFLOW_TARGET = 2.0 ** -15
+# From WIDE_SLOTS slots on (tpu_n16: N = 2^16, 42 + 14 primes of ~29.9
+# bits) the port's bootstrap deviates from the reference's arithmetic in
+# three places, each costing no level; below (tpu_n15b, test_boot) it is the
+# reference's, bit for bit.
+# * The working scale delta_bs is where EvalMod returns to
+#   (_returning_scale), not the nominal 2^60: tpu_n16's primes pair to
+#   spans of 2^59.78 to 2^59.93, EvalMod's squarings double the distance
+#   from the span at each step, and from 2^60 its output leaves at 2^99
+#   (tpu_n15b's balanced pairs span 2^60.000). SlotToCoeff's first level
+#   then encodes its diagonals at target * q_span / 2^101.9: 2^-5 for a
+#   2^28 input, nothing left of them.
+# * SlotToCoeff's levels before the last land on the working scale, only
+#   the last on the output's (target0 = the input's scale * q0' / delta').
+#   The reference lands every level on target0 (2^37 for a 2^28 input),
+#   where the key switches of the next level's baby steps add their noise.
+# * The input is raised to delta' = q0' * 2^-WIDE_GAP_BITS, not 2^-9. The
+#   message's coefficients in t = I + m/q0' shrink as 1/sqrt(N) for
+#   zero-mean slots (m/q0' 4.6e-6 RMS at N = 2^16, GAP 9), and CoeffToSlot's
+#   noise, ~3e-10 of t there, took 3.1e-5 of them; a constant c keeps its
+#   one coefficient c * 2^-GAP, where the sine's cubic term takes
+#   (2 pi c 2^-GAP)^2 / 6 of it (GAP 5: 1.4e-3 of the deep program's
+#   ~0.47, which decrypted 7.5e-4 RMS off). GAP 7 quarters the first and
+#   keeps the second below 1e-4 of a value below 1.
+# scripts/torch_bootstrap_stages.py holds every stage against a float model
+# under both arithmetics (PERF.md has its numbers).
+WIDE_SLOTS = 1 << 15
+WIDE_GAP_BITS = 7
 EVALMOD_TOL = 1e-7      # EvalMod's error in sin(2 pi I) past which a coefficient fails
 WIDE_DEGREE = 40        # the degree past K = 16: EvalMod's error at K = 24 near 1e-9
 
@@ -151,6 +179,87 @@ def sized_for_secret(cfg, secret_h, n):
     raise ValueError(f"no K up to {4 * cfg.K} at degree {WIDE_DEGREE} keeps the "
                      f"bootstrap's failure probability under {OVERFLOW_TARGET} "
                      f"at h = {secret_h}, N = {n}")
+
+
+def native_radix(n_slots):
+    """The butterfly radix HEVM builds the native bootstrapper with: more
+    slots take a bigger one (fewer CtS/StC levels, more rotations each), 8
+    from 2^15 slots, 7 from 2^14, else 5. The reference takes 7 from 2^14
+    slots (its runtime/runner.py:81), which on tpu_n16 leaves 8 of the
+    chain's 42 rows where its compiler profile lands every bootstrap at
+    level 29; radix 8 leaves 12 (rows_left), as the profile's comment
+    budgets."""
+    return 8 if n_slots >= 1 << 15 else 7 if n_slots >= 1 << 14 else 5
+
+
+def native_config(config):
+    """The BootstrapConfig HEVM builds for a profile (CKKSConfig):
+    native_radix, and the ModRaise bound K sized for the secret
+    (sized_for_secret)."""
+    return sized_for_secret(BootstrapConfig(radix=native_radix(config.n_slots)),
+                            config.secret_h, config.n)
+
+
+def rows_left(ctx, cfg):
+    """The RNS rows of ctx's chain that a bootstrap with BootstrapConfig
+    cfg leaves (NativeBootstrapper.rows_left), without a scheme, keys or
+    data: a bootstrap reaches target level t where (t + 1) *
+    rescale_rows <= this."""
+    return NativeBootstrapper(SimpleNamespace(ctx=ctx, ev=None), cfg).rows_left()
+
+
+class _Level:
+    """A CtVal's rows and scale without its data: NativeBootstrapper.
+    rows_left walks a bootstrap's levels with it, through the same calls,
+    branches and host scale arithmetic as CtVal's."""
+
+    __slots__ = ("q", "rs", "nl", "scale")
+
+    def __init__(self, q, rs, nl, scale):
+        self.q, self.rs, self.nl, self.scale = q, rs, nl, float(scale)
+
+    def _at(self, nl, scale):
+        return _Level(self.q, self.rs, nl, scale)
+
+    def drop_to(self, nl):
+        assert nl <= self.nl
+        return self._at(nl, self.scale)
+
+    def add(self, o):
+        assert self.nl == o.nl
+        return self
+
+    sub = add
+
+    def q_span(self):
+        out = 1.0
+        for i in range(self.rs):
+            out *= self.q[self.nl - 1 - i]
+        return out
+
+    def rescale(self):
+        assert self.nl > self.rs, "bootstrap pipeline exhausted the modulus chain"
+        return self._at(self.nl - self.rs, self.scale / self.q_span())
+
+    def mul_ct(self, o):
+        assert self.nl == o.nl
+        return self._at(self.nl, self.scale * o.scale).rescale()
+
+    def square(self):
+        return self.mul_ct(self)
+
+    def mul_const(self, c, target_scale):
+        pt_scale = target_scale * self.q_span() / self.scale
+        return self._at(self.nl, self.scale * pt_scale).rescale()
+
+    def add_const(self, c):
+        return self
+
+    def scale_by(self, factor):
+        return self._at(self.nl, self.scale * factor)
+
+    def double_val(self):
+        return self
 
 
 # --------------------------------------------------------------------------
@@ -367,6 +476,9 @@ class NativeBootstrapper:
         # nominal EvalMod normalizer folded into the last CtS level's
         # diagonals; the residual (actual delta'/q0' vs 2^-GAP) rides the
         # declared scale, exactly (see bootstrap()).
+        self.wide = ctx.config.n_slots >= WIDE_SLOTS
+        if self.wide:
+            self.GAP_BITS = WIDE_GAP_BITS       # module comment at WIDE_SLOTS
         self.norm_nom = 2.0 ** (-self.GAP_BITS) / self.cfg.K
         # Slot transforms are the FFT-factored twisted DFT (dft_factor.py):
         # ceil(log2 s / radix) sparse-diagonal levels per direction instead
@@ -401,6 +513,10 @@ class NativeBootstrapper:
         self.inlined = 0        # of which inside another graph (no launch of their own)
         # NTT calls the replayed graphs ran (what each recorded at capture)
         self.replayed_ntt = dict.fromkeys(ntt_kernel.RECORDED, 0)
+        if self.wide:
+            # from WIDE_SLOTS slots the primes need not pair to 2^60 (module
+            # comment at WIDE_SLOTS)
+            self.delta_bs = self._returning_scale()
 
     # ------------------------------------------------------------ helpers
     def encode_vec(self, vec, scale, nl):
@@ -580,6 +696,14 @@ class NativeBootstrapper:
 
         return eval_poly(np.asarray(coeffs, dtype=np.complex128))
 
+    def _evalmod(self, t1):
+        """EvalMod: the Chebyshev fit of cos, then r double angles: y =
+        sin(2*pi*t), the value m/q0 = y / (2*pi)."""
+        y = self._eval_cheb_bsgs(t1, self._cheb_coeffs())
+        for _ in range(self.cfg.r):
+            y = y.square().double_val().add_const(-1.0)
+        return y.scale_by(2.0 * np.pi)
+
     # ----------------------------------------------------------- pipeline
     def _transforms(self):
         """CtS/StC level stacks with the EvalMod normalizer and the Re/Im
@@ -651,6 +775,54 @@ class NativeBootstrapper:
         last = SlotLinearTransform(self, diags=self._cts_last_diags)
         levels = list(cts) + [last, stc_first[0]] + list(stc_rest)
         return sorted({st for t in levels for st in t.rotation_steps()})
+
+    def rows_left(self):
+        """The rows of the chain a bootstrap leaves: ModRaise lifts to all
+        num_q rows, every CtS and StC level (ceil(log2 slots / radix) each
+        way, dft_factor.build_levels) takes `rs`, and EvalMod what `_evalmod`
+        takes, walked over levels and scales alone (_Level: the calls,
+        branches and host scale arithmetic of `_bootstrap`; no data, no
+        key). 8 of tpu_n16's 42 rows at radix 7, 12 at radix 8; 30 of
+        tpu_n15b's 60 at radix 7."""
+        t, per_way = self._cts_walk()
+        return self._evalmod(t).nl - self.rs * per_way
+
+    def _cts_walk(self):
+        """(EvalMod's input after ModRaise and CoeffToSlot as a _Level, the
+        CtS/StC levels each way)."""
+        ctx = self.s.ctx
+        logs = int(ctx.config.n_slots).bit_length() - 1
+        per_way = -(-logs // self.cfg.radix)
+        q0p = float(ctx.q_primes[0]) * float(ctx.q_primes[1])
+        t = _Level(ctx.q_primes, self.rs, ctx.config.num_q, q0p * 2.0 ** -self.GAP_BITS)
+        for _ in range(per_way):
+            t = t.mul_const(None, self.delta_bs)        # SlotLinearTransform.apply
+        return t, per_way
+
+    def _returning_scale(self):
+        """The working scale EvalMod returns to: its squarings take a scale
+        s to s^2 / q_span, whose fixed point is the span, and the
+        Chebyshev leaves and giants and the r double angles double any
+        distance from it at every squaring. The nominal 2^60 is the span of
+        tpu_n15b's balanced pairs; tpu_n16's 30-bit primes pair to spans
+        of 2^59.78 to 2^59.93, from which EvalMod leaves 2^60 at 2^99 and
+        SlotToCoeff's first plaintexts (encoded at its target * q_span /
+        that) with too few bits. Bisected over the level walk (_Level: the
+        same host arithmetic) to where EvalMod's output, less the 2*pi it
+        folds in, comes back to the scale it started at."""
+        def drift(bits):
+            self.delta_bs = 2.0 ** bits
+            t, _ = self._cts_walk()
+            return math.log2(self._evalmod(t).scale / (2 * np.pi)) - bits
+
+        lo, hi = math.log2(self.delta_bs) - 1, math.log2(self.delta_bs)
+        for _ in range(64):
+            mid = (lo + hi) / 2
+            lo, hi = (lo, mid) if drift(mid) > 0 else (mid, hi)
+        if abs(drift(hi)) > 1e-6:
+            raise ValueError(f"EvalMod's scale returns nowhere within a bit below "
+                             f"2^{math.log2(self.delta_bs):.0f}: the drift is {drift(hi)} bits")
+        return 2.0 ** hi
 
     # EvalMod input geometry: pre-upscale the input so delta'/q0' ~ 2^-GAP_BITS
     # (HEaaN: logq0 60, logDelta 51). Larger gap -> worse sin linearization;
@@ -1059,17 +1231,8 @@ class NativeBootstrapper:
         t1_re = u1.add(u1.conj())                  # value = norm * Re(u)
         t1_im = u2.add(u2.conj())                  # value = norm * Im(u)
 
-        coeffs = self._cheb_coeffs()
-
-        def evalmod(t1):
-            y = self._eval_cheb_bsgs(t1, coeffs)
-            for _ in range(cfg.r):
-                y = y.square().double_val().add_const(-1.0)
-            # y = sin(2*pi*t) ; value m/q0 = y / (2*pi)
-            return y.scale_by(2.0 * np.pi)
-
-        v_re = evalmod(t1_re)
-        v_im = evalmod(t1_im)       # identical op sequence -> same scale
+        v_re = self._evalmod(t1_re)
+        v_im = self._evalmod(t1_im)     # identical op sequence -> same scale
 
         # SlotToCoeff with the repack folded into its first level:
         # A(v_re + i*v_im) = A1...(Afirst v_re + Afirst_i v_im) — the i rides
@@ -1083,10 +1246,16 @@ class NativeBootstrapper:
         # is z*(delta/q0); forcing out.scale = scale_orig*q0/delta makes
         # ints = z*scale_orig.
         target0 = scale_orig * q0 / delta
-        out = stc_first[0].apply(v_re, target0).add(
-            stc_first[1].apply(v_im, target0))
-        for t in stc_rest:
-            out = t.apply(out, target0)
+        # The levels before the last land on target0 too (the reference),
+        # or from WIDE_SLOTS slots on the working scale (module comment
+        # there): the same depth, only their plaintexts' scales.
+        targets = [target0] * (1 + len(stc_rest))
+        if self.wide:
+            targets[:-1] = [delta_bs] * (len(targets) - 1)
+        out = stc_first[0].apply(v_re, targets[0]).add(
+            stc_first[1].apply(v_im, targets[0]))
+        for t, target in zip(stc_rest, targets[1:]):
+            out = t.apply(out, target)
 
         nl2 = (target_level + 1) * ctx.config.rescale_rows
         assert out.nl >= nl2, (

@@ -37,10 +37,12 @@ def trace_and_save(name, paramstr, body, dirs="traced", cst_dirs=None):
 
 
 def compile_traced(name, pipeline, waterline, profile,
-                   traced_dir="traced", out_dir="optimized"):
+                   traced_dir="traced", out_dir="optimized", compiler_profile=None):
     """Earth IR -> scale-managed -> .hevm, for the crypto profile's compiler
-    profile. Returns the .hevm path."""
-    load_profile(COMPILER_PROFILES[profile])
+    profile, or `compiler_profile` (a profile name or json path, e.g. the
+    reach-limited artifacts/deep_dacapo40_tpu_n16/profiled_TPU_n16_native.json).
+    Returns the .hevm path."""
+    load_profile(compiler_profile or COMPILER_PROFILES[profile])
     fn = load_function(os.path.join(traced_dir, f"{name}.eir.json"))
     prefix = os.path.join(out_dir, pipeline, f"{name}.{waterline}")
     t0 = time.perf_counter()

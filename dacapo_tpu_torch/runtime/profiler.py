@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from ..crypto.bootstrap_native import BootstrapConfig, sized_for_secret
+from ..crypto.bootstrap_native import native_config
 from ..crypto.params import COMPILER_PROFILES
 from ..crypto.scheme import Scheme
 
@@ -135,8 +135,7 @@ def profile_backend(profile="tpu_n15", out_path=None, iters=10, bootstrap=False,
     rlk, gk = s.keys.rlk, s.keys.galois[1]
     bs = None
     if bootstrap:
-        bs = s.enable_native_bootstrap(sized_for_secret(
-            BootstrapConfig(radix=7 if n >= (1 << 14) else 5), cfg.secret_h, cfg.n))
+        bs = s.enable_native_bootstrap(native_config(cfg))     # HEVM's
     rr = cfg.rescale_rows
     lat = {k: [] for k in OPS}
     # table entry j is compiler level j+1 (ir/config.py pads a leading 0 for

@@ -25,9 +25,15 @@ either package's client can talk to either package's server.
 
 On a profile made for native bootstrapping (`native_bootstrap=True`:
 tpu_n15b, tpu_n16) a full `HEVM()` enables the native bootstrapper
-(crypto/bootstrap_native.py) with the reference's radix rule, and a server
+(crypto/bootstrap_native.py) with `native_radix` (8 from 2^15
+slots, 7 from 2^14, else 5), and a server
 enables it at `load` for a program that bootstraps; `DACAPO_TPU_BOOT=native`
-enables it on any sparse-secret profile at `load`. On the card, `load` runs
+enables it on any sparse-secret profile at `load`. `load` (and `make_keys`)
+refuses, before any galois key, a program that bootstraps to a level past
+what the native bootstrap leaves (vm/executor.py check_bootstrap_reach:
+tpu_n16 programs compile against
+artifacts/deep_dacapo40_tpu_n16/profiled_TPU_n16_native.json, whose bounds
+stop at the level 11 radix 8 reaches). On the card, `load` runs
 each of the program's native bootstraps once over a zero input
 (`load_seconds["bootstrap_warmup"]`), so their galois keys, conjugation key
 and plaintext diagonals are made at load and not in the first request;
@@ -95,11 +101,11 @@ import numpy as np
 import torch
 
 from ..crypto import keys as keymod
-from ..crypto.bootstrap_native import BootstrapConfig, sized_for_secret
+from ..crypto.bootstrap_native import BootstrapConfig, native_radix, sized_for_secret
 from ..crypto.params import PROFILES, to_dev, to_host
 from ..crypto.scheme import Ciphertext, Scheme
 from ..ir.serialize import read_cst
-from ..vm.executor import HEVMExecutor
+from ..vm.executor import HEVMExecutor, check_bootstrap_reach
 from ..vm.hevm import HEVMProgram, OP_BOOTSTRAP
 
 MODES = ("full", "client", "server")
@@ -145,10 +151,13 @@ class HEVM:
     Keysets live in ~/.hevm/torch/<profile> unless keyset_dir is given; the
     directory format is shared with the JAX package. jit: "auto",
     "segment", True or False; host_rng: the oracle's randomness from the
-    host (module docstring)."""
+    host (module docstring). save_keys: a full VM writes the keys it makes
+    (at start, at load and in a run) to the keyset directory, as the
+    reference's does; False keeps them in memory only, for a keyset too
+    large to write where nothing reads it back (tpu_n16's is ~35 GB)."""
 
     def __init__(self, profile=None, keyset_dir=None, device=None, jit="auto",
-                 host_rng=False, mode="full"):
+                 host_rng=False, mode="full", save_keys=True):
         if not (jit in ("auto", "segment") or isinstance(jit, bool)):
             raise ValueError(f"jit must be 'auto', 'segment', True or False, not {jit!r}")
         if mode not in MODES:
@@ -157,6 +166,7 @@ class HEVM:
         self.mode = mode
         self.jit = jit
         self.host_rng = host_rng
+        self.save_keys = save_keys
         self.scheme = Scheme(self.profile, device=device)
         self.device = self.scheme.device
         self.keyset_dir = keyset_dir or os.path.expanduser(
@@ -192,20 +202,25 @@ class HEVM:
                 f"server VM needs a pregenerated keyset at {d} for profile "
                 f"{self.profile!r} (a full HEVM, or `python -m dacapo_tpu_torch.cli "
                 "keygen`, makes one)")
+        self.scheme.generate_keys()
+        if not self.save_keys:
+            return
         if os.path.isdir(d):
             shutil.rmtree(d)   # stale keyset: incremental saves must not mix
-        self.scheme.generate_keys()
         keymod.save_keyset(self.scheme.keys, d)
         with open(fp_path, "w") as f:
             json.dump({"primes": fingerprint}, f)
 
     def _native_bootstrapper(self):
-        """The scheme's native bootstrapper, built once: more slots take a
-        bigger butterfly radix (fewer CtS/StC levels, more rotations per
-        level), the reference's rule (runtime/runner.py:75-82); a sparse
-        secret of Hamming weight past 101 (at N = 2^15) takes a wider
-        ModRaise bound K and degree 40 (bootstrap_native.sized_for_secret:
-        K = 24 at h = 192, where the reference keeps K = 16)."""
+        """The scheme's native bootstrapper, built once (what
+        bootstrap_native.native_config gives): more slots take a bigger
+        butterfly radix (fewer CtS/StC levels, more rotations per level),
+        radix 8 from 2^15 slots where the reference's rule
+        (runtime/runner.py:75-82) keeps 7 and so cannot reach the level its
+        tpu_n16 compiler profile bootstraps to; a sparse secret of Hamming
+        weight past 101 (at N = 2^15) takes a wider ModRaise bound K and
+        degree 40 (sized_for_secret: K = 24 at h = 192, K = 25 at h = 192
+        and N = 2^16, where the reference keeps K = 16)."""
         s = self.scheme
         if s._native_bs is None:
             cfg = s.ctx.config
@@ -218,9 +233,8 @@ class HEVM:
                     f"server VM: the keyset at {self.keyset_dir} lacks the conjugation "
                     "key the native bootstrap needs, and a server makes no keys: load "
                     "the program on a full HEVM first")
-            radix = 7 if cfg.n_slots >= (1 << 14) else 5
-            s.enable_native_bootstrap(sized_for_secret(BootstrapConfig(radix=radix),
-                                                       cfg.secret_h, cfg.n))
+            s.enable_native_bootstrap(sized_for_secret(
+                BootstrapConfig(radix=native_radix(cfg.n_slots)), cfg.secret_h, cfg.n))
         return s._native_bs
 
     def _check_server_keys(self):
@@ -231,7 +245,8 @@ class HEVM:
         s = self.scheme
         if boots and (s.ctx.config.native_bootstrap
                       or os.environ.get("DACAPO_TPU_BOOT", "") == "native"):
-            self._native_bootstrapper()
+            check_bootstrap_reach(self.prog, self._native_bootstrapper(),
+                                  s.ctx.config.rescale_rows)
         if boots and s._native_bs is None:
             raise RuntimeError(
                 "server VM: the program bootstraps with the oracle, which decrypts "
@@ -305,7 +320,7 @@ class HEVM:
         if self.device.type == "cuda" and self.executor.capture_oracle():
             lap()
             parts.append("oracle_capture")
-        if self.mode == "full":
+        if self.mode == "full" and self.save_keys:
             # persist newly generated keys (existing files are kept)
             keymod.save_keyset(self.scheme.keys, self.keyset_dir, skip_existing=True)
             lap()
@@ -343,10 +358,14 @@ class HEVM:
         prog = HEVMProgram.load(hevm_path)
         s = self.scheme
         before = len(s.keys.galois)
+        native = any(op.opcode == OP_BOOTSTRAP for op in prog.ops) and (
+            s.ctx.config.native_bootstrap
+            or os.environ.get("DACAPO_TPU_BOOT", "") == "native")
+        if native:
+            check_bootstrap_reach(prog, self._native_bootstrapper(),
+                                  s.ctx.config.rescale_rows)
         s.ensure_galois([o for o in prog.rotation_offsets() if o != 0])
-        if any(op.opcode == OP_BOOTSTRAP for op in prog.ops) and (
-                s.ctx.config.native_bootstrap
-                or os.environ.get("DACAPO_TPU_BOOT", "") == "native"):
+        if native:
             s.ensure_galois(self._native_bootstrapper().rotation_steps())
         return len(s.keys.galois) - before
 
@@ -464,7 +483,8 @@ class HEVM:
             return None
         self._out = self.executor.decrypt_outputs()
         keys = self.scheme.keys          # a mesh's first batch replaces them
-        if (len(keys.galois), keys.conj is not None) != n_keys and keys.shard is None:
+        if ((len(keys.galois), keys.conj is not None) != n_keys and keys.shard is None
+                and self.save_keys):
             # keys the native bootstrap made during the run (the CPU makes
             # them lazily) persist for later runs
             keymod.save_keyset(keys, self.keyset_dir, skip_existing=True)

@@ -272,6 +272,26 @@ def host_ahead(fn, items, workers=8):
             yield queued.popleft().result()
 
 
+def check_bootstrap_reach(program, bs, rescale_rows):
+    """Refuse a program whose native bootstraps target a level past what
+    the native bootstrapper `bs` leaves of the chain
+    (NativeBootstrapper.rows_left), with a ValueError naming both levels:
+    HEVM.load and the executor call this before they make any key, where
+    the bootstrap would otherwise stop in the middle of a request. Nothing
+    to check without native bootstraps."""
+    targets = [op.rhs for op in program.ops if op.opcode == OP_BOOTSTRAP]
+    if not targets or not isinstance(bs, NativeBootstrapper):
+        return
+    rows = bs.rows_left()
+    reach = rows // rescale_rows - 1
+    if max(targets) > reach:
+        raise ValueError(
+            f"the program bootstraps to level {max(targets)}, past level {reach}, the "
+            f"highest a native bootstrap with {bs.cfg} reaches on this profile (it leaves "
+            f"{rows} of {bs.s.ctx.config.num_q} rows): compile it against a profile "
+            f"whose levelUpperBound and bootstrapLevelUpperBound are at most {reach}")
+
+
 def boot_window_plan(windows, verdict, path, key_budget=False, mesh=False):
     """[(window index, signature, None or why it runs eagerly)] of a
     request's native boot windows ([(window index, (rows, scale, target
@@ -343,6 +363,7 @@ class HEVMExecutor:
         # else the oracle
         self.bootstrapper = Bootstrapper(scheme, host_rng=host_rng) if any(
             op.opcode == OP_BOOTSTRAP for op in program.ops) else None
+        check_bootstrap_reach(program, self.bootstrapper, self.rr)
         # device bytes of the keys a request reads: the program's rotation
         # keys and, with native bootstraps, their rotation keys and the
         # conjugation key

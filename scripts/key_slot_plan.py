@@ -47,11 +47,10 @@ def native_reads(profile):
     """(rotation keys, the galois-key reads of one native bootstrap in its
     order): each CtS/StC level reads its baby steps (rotate_bank), then one
     giant step per group (SlotLinearTransform.apply)."""
-    from dacapo_tpu_torch.crypto.bootstrap_native import BootstrapConfig, NativeBootstrapper
+    from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper, native_config
     from dacapo_tpu_torch.crypto.scheme import Scheme
     s = Scheme(profile, device="cpu")
-    radix = 7 if s.ctx.config.n_slots >= (1 << 14) else 5     # the runner's rule
-    bs = NativeBootstrapper(s, BootstrapConfig(radix=radix))
+    bs = NativeBootstrapper(s, native_config(s.ctx.config))   # the runner's
     n_slots = s.ctx.config.n_slots
     cts, stc_first, stc_rest = bs._transforms()
     last = bs._cts_last(1.0)

@@ -57,7 +57,7 @@ import numpy as np                                            # noqa: E402
 import torch                                                  # noqa: E402
 
 from dacapo_tpu_torch.crypto.bootstrap_native import (        # noqa: E402
-    BootstrapConfig, NativeBootstrapper, sized_for_secret)
+    BootstrapConfig, NativeBootstrapper, native_config, sized_for_secret)
 from dacapo_tpu_torch.crypto.params import PROFILES           # noqa: E402
 from dacapo_tpu_torch.crypto.scheme import Scheme             # noqa: E402
 from dacapo_tpu_torch.vm.executor import HEVMExecutor, boot_window_plan  # noqa: E402
@@ -217,8 +217,8 @@ def plan(prog, constants, profile, hbm):
     ex, cid_info, cid_qp = executor_shell(prog, profile, constants)
     cfg = ex.s.ctx.config
     sigs = ex._boot_signatures()
-    radix = 7 if cfg.n_slots >= (1 << 14) else 5              # the runner's rule
-    bs_config = sized_for_secret(BootstrapConfig(radix=radix), cfg.secret_h, cfg.n)  # the runner's
+    bs_config = native_config(cfg)                              # the runner's
+    radix = bs_config.radix
     after, boot_steps, conj = dry_bootstraps(profile, sigs, bs_config)
     half = cfg.n // 2
     prog_steps = {o % half for o in prog.rotation_offsets() if o % half}
@@ -289,8 +289,7 @@ def boot_graph_plans(prog, profile, segment_bound, constants=None):
     ex, _, _ = executor_shell(prog, profile, constants)
     cfg = ex.s.ctx.config
     sigs = ex._boot_signatures()
-    radix = 7 if cfg.n_slots >= (1 << 14) else 5              # the runner's rule
-    bs_config = sized_for_secret(BootstrapConfig(radix=radix), cfg.secret_h, cfg.n)
+    bs_config = native_config(cfg)                              # the runner's
     seq = [(nl, sc) for nl, sc, _ in ex._boot_sequence()]
     windows = ex._boot_windows()
     index = {sig: i for i, sig in enumerate(sigs)}

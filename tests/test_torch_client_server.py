@@ -11,6 +11,7 @@ extend_galois refuses to make keys without the secret; and a server HEVM
 refuses, at load and before any executor exists, an oracle program and a
 program whose keys the keyset lacks."""
 
+import dataclasses
 import json
 import os
 
@@ -20,14 +21,14 @@ import pytest
 from dacapo_tpu.crypto import keys as ref_keys
 from dacapo_tpu.runtime.runner import HEVM as RefHEVM
 from dacapo_tpu.runtime.runner import serialize_ct as ref_serialize_ct
-from dacapo_tpu_torch.crypto import keys
+from dacapo_tpu_torch.crypto import keys, params
 from dacapo_tpu_torch.crypto.params import to_host
 from dacapo_tpu_torch.ir import trace as hc
 from dacapo_tpu_torch.runtime import runner
 from dacapo_tpu_torch.runtime.harness import compile_traced, trace_and_save
 from dacapo_tpu_torch.runtime.runner import HEVM, deserialize_ct, serialize_ct
 from dacapo_tpu_torch.vm.hevm import HEVMProgram
-from test_torch_executor_native import compile_test_boot
+from test_torch_executor_native import WIDER, compile_test_boot
 
 PROFILE = "test_n10"
 RMS_BAR = 5e-3          # tests/test_client_server.py's
@@ -242,8 +243,12 @@ def test_server_refuses_oracle_program(boot_program, tmp_path):
 
 def test_server_refuses_native_without_its_keys(boot_program, tmp_path, monkeypatch):
     """DACAPO_TPU_BOOT=native: the conjugation key is checked first, then the
-    bootstrap's rotation keys, each refused without making a key."""
+    bootstrap's rotation keys, each refused without making a key (test_boot
+    with the 40 Q primes the program's bootstrap reaches: past the reach the
+    load refuses the program first, tests/test_torch_native_n16.py)."""
     cst, hv = boot_program
+    monkeypatch.setitem(params.PROFILES, "test_boot",
+                        dataclasses.replace(params.PROFILES["test_boot"], **WIDER))
     monkeypatch.setenv("DACAPO_TPU_BOOT", "native")
     kd = str(tmp_path / "keys")
     full = HEVM("test_boot", keyset_dir=kd, device="cpu")

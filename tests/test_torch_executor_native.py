@@ -200,8 +200,10 @@ def test_warm_bootstraps_cover_the_run(runs, monkeypatch):
 # ----------------------------------------------------------------------- C.2
 @pytest.fixture
 def native_profile(monkeypatch):
-    """test_boot marked for native bootstrapping, as a port profile."""
-    cfg = dataclasses.replace(params.PROFILES[PROFILE], native_bootstrap=True)
+    """test_boot marked for native bootstrapping, as a port profile, with
+    the 40 Q primes the compiled program's bootstrap reaches (HEVM.load
+    refuses a program past the reach)."""
+    cfg = dataclasses.replace(params.PROFILES[PROFILE], native_bootstrap=True, **WIDER)
     monkeypatch.setitem(params.PROFILES, "test_boot_native", cfg)
     return "test_boot_native"
 
@@ -235,8 +237,11 @@ def test_hevm_dispatches_native_and_env_keeps_it(native_profile, compiled, tmp_p
 
 def test_env_native_on_a_plain_profile(compiled, tmp_path, monkeypatch):
     """DACAPO_TPU_BOOT=native enables the native path at load on a
-    sparse-secret profile not marked for it, with the radix rule."""
+    sparse-secret profile not marked for it, with the radix rule (test_boot
+    with the 40 Q primes the program's bootstrap reaches)."""
     _, _, hevm_path, cst_path = compiled
+    monkeypatch.setitem(params.PROFILES, PROFILE,
+                        dataclasses.replace(params.PROFILES[PROFILE], **WIDER))
     vm = runner.HEVM(PROFILE, keyset_dir=str(tmp_path / "keys"), device="cpu")
     assert vm.scheme._native_bs is None
     monkeypatch.setenv("DACAPO_TPU_BOOT", "native")
