@@ -191,16 +191,42 @@
     segment path (a jit=True request, ("segment", "streaming"): its
     plaintexts stream; timed, its bootstraps timed apart: every boot window a
     graph replay but those eager for a stated reason, EAGER_REASONS, as
-    the executor's plan says) and per-op (jit=False: every bootstrap eager,
-    "per_op"): each
+    the executor's plan says): the
     request's result shipped back and decrypted by the client (RMS of the
     10 logits <= 9.5152e-4), 18 native bootstraps, no key made, no plain
     NTT, NTT calls in both modes (the wrapper's launches outside graphs
-    plus what each replayed graph recorded at capture), the output
-    ciphertexts byte-equal; load seconds by part, device bytes (keys, pool,
+    plus what each replayed graph recorded at capture); since PR 17 no
+    per-op rerun (57.8 s; the per-op path with native bootstraps is the
+    deep program's rerun in 9 and the squeezenet phase's, each held byte
+    for byte to its segment request); load seconds by part, device bytes (keys, pool,
     diagonals, peaks); then the NTT at every batch size the load and the
     requests gave it, bit-equal to the plain NTT in both modes;
-14. the native_n16 phase (serve_native_n16), after every earlier VM is
+14. the squeezenet_native phase (serve_squeezenet_native(prefix=True)),
+    after every earlier VM is freed: SqueezeNet `dacapo 40` on tpu_n15b
+    (deterministic-random weights), the first model of the deep list, cut
+    to its prefix at full width: conv_1, avgpool_1 and fire_2 (the
+    committed artifacts/squeezenet_dacapo40_tpu_n15b/SqueezeNetPrefix.hevm
+    and the port's own trace, nt = 2^14, by SHA-256; one native bootstrap),
+    under expected.json's memory plan (DACAPO_TPU_HBM_BYTES = its key
+    bytes), which streams its keys as the card's plan streams the whole
+    network's 57.7 GB; the host's memory read against the keyset before
+    the first key; a full HEVM("tpu_n15b", save_keys=False) makes the keys
+    into pinned host slabs (the graph windows' key arena, the native
+    bootstraps through the LRU; nothing written) and warms each bootstrap
+    signature under a plane bound of 0; the golden input encrypted once; a
+    timed segment request (the plaintexts stream, every bootstrap eager for
+    "key_budget"), a profiled one, a per-op one: RMS of every output slot
+    against the exact-float simulation's and against the torch model's
+    activations (OutPack) at most 9.5152e-4; expected.json's bootstrap
+    count, each bootstrap's seconds, key uploads and planes encoded again;
+    no key made, no plain NTT, the outputs byte-equal; then the NTT at
+    every batch size the phase launched, bit-equal to the plain NTT. The
+    whole network (734 keys, 14 bootstraps, ~9 minutes on the card) does
+    not fit the smoke's time limit beside the other phases: it runs the
+    same function (prefix=False), with the same checks against its
+    logits, in scripts/torch_squeezenet_native.py, whose numbers PERF.md
+    gives;
+15. the native_n16 phase (serve_native_n16), after every earlier VM is
     freed: native bootstrapping on the 128-bit-secure tpu_n16 (N = 2^16),
     radix 8 (bootstrap_native.native_radix), K 25 and degree 40, the
     working scale EvalMod returns to and SlotToCoeff's first level on it
@@ -214,12 +240,12 @@
     ciphertext each: byte-equal, RMS <= 1e-4, one native bootstrap each
     (replayed, or eager "per_op"), no key made, no plain NTT; then the NTT
     at every batch size the phase launched, bit-equal to the plain NTT;
-15. the native artifact core (vm/native.py, csrc/hevm_core.cpp), built
+16. the native artifact core (vm/native.py, csrc/hevm_core.cpp), built
     with g++ before the first phase: every .hevm and .cst the phases read
     and write goes through it (its calls are counted and must be nonzero;
     its read time against the Python reader is
     scripts/hevm_read_timing.py's);
-16. prints the kernel table as one JSON line (launches: the profiled
+17. prints the kernel table as one JSON line (launches: the profiled
     ResNet request's, counted on the device; every path's under
     launches_by_path, and per ciphertext; the batch shapes' times), then
     the card's name and power limit, then {"ok": true, "device": {...}} as
@@ -421,7 +447,8 @@ def kernel_checks(torch, params, ntt_mod, nk):
     return results, max_err
 
 
-def check_shapes(torch, params, ntt_mod, nk, profile, batches, timed, results, max_err):
+def check_shapes(torch, params, ntt_mod, nk, profile, batches, timed, results, max_err,
+                 plain_up_to=480):
     """Both modes and the round trip bit-equal to the plain NTT at each batch
     size of `batches` on `profile`; the sizes in `timed` are also timed
     against the bound (device time by CUDA events, L2 flushed, median of
@@ -457,7 +484,8 @@ def check_shapes(torch, params, ntt_mod, nk, profile, batches, timed, results, m
         n_primes = len(set(rows.tolist()))
         for mode in ("fwd", "inv"):
             k_ms = time_cuda(kern[mode], torch, flush)
-            p_ms = time_cuda(plain[mode], torch, flush) if b <= 480 else None
+            p_ms = (time_cuda(plain[mode], torch, flush)
+                    if plain_up_to is None or b <= plain_up_to else None)
             bound, by = ntt_bound_ms(b, ctx.n, n_primes, mode == "inv")
             results[mode][(profile, b)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                                bound_by=by)
@@ -491,15 +519,16 @@ class NttShapes:
         self.ops.ntt_cuda = self.kernel
 
 
-def batch_kernel_checks(torch, params, ntt_mod, nk, profile, sizes, tag):
+def batch_kernel_checks(torch, params, ntt_mod, nk, profile, sizes, tag, plain_up_to=480):
     """The NTT at every batch size a batch path gave it (NttShapes),
     bit-equal to the plain NTT in both modes; the largest timed against its
-    bound. Returns {checked, largest, fwd, inv, max_abs_err}."""
+    bound, and the plain NTT beside it up to plain_up_to (None: at every
+    size). Returns {checked, largest, fwd, inv, max_abs_err}."""
     results = {"fwd": {}, "inv": {}}
     max_err = {"fwd": 0, "inv": 0}
     largest = max(sizes)
     checked = check_shapes(torch, params, ntt_mod, nk, profile, sizes, (largest,), results,
-                           max_err)
+                           max_err, plain_up_to)
     log(f"[ntt] {tag}: equal to the plain NTT, both modes and the round trip, at every batch "
         f"size the path launched on {profile}: B={','.join(map(str, checked))}")
     return dict(checked=checked, largest=largest, max_abs_err=max_err,
@@ -1401,9 +1430,9 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     out["resident_peak_bytes"] = resident["peak_bytes"]
     out["resident_peak_load_bytes"] = resident["peak_load_bytes"]
 
-    # the resident VM's timed request, its argument and oracle draws
-    # restored: the segment path (in-graph decode), then per-op (the LRU)
-    for path, jit in (("segment", "auto"), ("per_op", False)):
+    def rerun(path, jit):
+        """The resident VM's timed request, its argument and oracle draws
+        restored, on `path`."""
         bs.gen.set_state(resident["oracle_state"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1418,14 +1447,10 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         if not out[f"{path}_equals_resident"]:
             raise AssertionError(f"the streaming VM's {path} outputs differ from the "
                                  "resident VM's")
-    out["lru"] = dict(entries=len(ex._pt_dev), device_bytes=ex._pt_dev_bytes,
-                      budget=ex._pt_budget)
-    out["key_device_peak_bytes"] = galois.peak_bytes
-    log(f"[resnet stream] device key bytes at their peak over the phase, per-op rerun "
-        f"included: {galois.peak_bytes} (budget {out['key_budget']})")
-    if galois.peak_bytes > out["key_budget"]:
-        raise AssertionError(f"device key bytes {galois.peak_bytes} passed the budget")
-    shapes.stop()
+
+    # the segment path (in-graph decode); per-op (the LRU) comes last: with
+    # streaming plaintexts it drops the graphs (vm/executor.py _use_path)
+    rerun("segment", "auto")
 
     def request():
         vm.setInput(0, packed)
@@ -1457,6 +1482,15 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         rows=cap["decode_rows"], device_busy_s=dec["device_busy_s"],
         ntt_s=dec["ntt_kernel_s"], other_s=dec["device_busy_s"] - dec["ntt_kernel_s"],
         ntt_launches=dec["ntt_launches"], wall_s=dec["wall_s"], by_kernel=dec["by_kernel"][:12])
+    rerun("per_op", False)
+    out["lru"] = dict(entries=len(ex._pt_dev), device_bytes=ex._pt_dev_bytes,
+                      budget=ex._pt_budget)
+    out["key_device_peak_bytes"] = galois.peak_bytes
+    log(f"[resnet stream] device key bytes at their peak over the phase, per-op rerun "
+        f"included: {galois.peak_bytes} (budget {out['key_budget']})")
+    if galois.peak_bytes > out["key_budget"]:
+        raise AssertionError(f"device key bytes {galois.peak_bytes} passed the budget")
+    shapes.stop()
     log(f"[resnet stream] median {out['request_median_s']:.3f} s against the resident "
         f"{resident['request_median_s']:.3f} s; device busy {prof['device_busy_s']:.4f} s "
         f"against {resident['busy_s']:.4f} s; the decode of one request alone "
@@ -2107,18 +2141,17 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
     the diagonals, captures the segment graphs and the bootstrap graphs of
     the signatures whose planes the bound leaves pinned) and a client HEVM
     encrypts the golden input and ships it. The server runs the shipped
-    ciphertext twice, under each path's bound on the bootstrap's planes: on
-    the segment path, timed (its bootstraps timed apart, a synchronize
-    around each, replays and eager ones apart), then per-op (jit=False),
-    whose eager bootstraps the segment request's output is held to. Each:
+    ciphertext on the segment path, timed (its bootstraps timed apart, a
+    synchronize around each, replays and eager ones apart; the per-op
+    rerun of earlier PRs is gone to keep the smoke inside its time limit:
+    the deep program's and SqueezeNet's per-op requests drive that path):
     the client decrypts the shipped result (RMS of the 10 logits <=
     9.5152e-4), all 18 bootstraps ran natively (the executor's bootstrapper
     is the native one, the load captured no oracle graph), the replays and
     the eager bootstraps by reason are the executor's plan (boot_plan), no
     key was made, no plain NTT ran, and the NTT calls (the wrapper's
     launches outside graphs plus what each replayed graph recorded at
-    capture) are positive in both modes; the output ciphertexts are
-    byte-equal. Then the NTT is held to its plain version at every batch
+    capture) are positive in both modes. Then the NTT is held to its plain version at every batch
     size the load and the requests gave it. Before the server loads ResNet
     it serves the deep program's whole-program request (deep: the compiled
     files and (e)'s blobs; serve_native_whole_server). Returns (results, the
@@ -2273,12 +2306,10 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
         return res
 
     bs.bootstrap = timed_bootstrap
-    requests, first = {}, None
+    requests = {}
     try:
-        # the segment request first, on the graphs the load captured; the
-        # per-op request (eager bootstraps, which drop the graphs) is what
-        # its output is held to
-        for kind, jit in (("timed", True), ("per-op", False)):
+        # the segment request, on the graphs the load captured
+        for kind, jit in (("timed", True),):
             reset_counts(nk, ntt_mod)
             calls0, replays0, n_keys0 = bs.calls, graph_replays(ex), len(galois)
             replayed0 = graph_ntt(ex)
@@ -2313,9 +2344,6 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
             r["client_decrypt_s"] = sync() - t0
             r["rms"] = float(np.sqrt(np.mean((logits - want) ** 2)))
             r["logits"] = logits.tolist()
-            if first is None:
-                first = blobs
-            r["equals_segment"] = blobs == first
             span = lambda ts: f"{min(ts):.3f}-{max(ts):.3f}" if ts else "none"
             log(f"[resnet native] {kind} request (jit={jit}: {r['path']}) "
                 f"{request_s:.3f} s: {r['bootstraps']} native bootstraps "
@@ -2328,8 +2356,7 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
                 f"({r['eager_ntt_launches']} launched "
                 f"outside graphs), plain NTT calls {r['plain_ntt_calls']}; keys made "
                 f"{r['keys_made']}; peak {r['peak_bytes']} bytes; client decrypt "
-                f"{r['client_decrypt_s']:.3f} s, rms {r['rms']:.4e} (bar {RMS_BAR_RESNET}); "
-                f"output ciphertexts byte-equal to the segment request's: {r['equals_segment']}")
+                f"{r['client_decrypt_s']:.3f} s, rms {r['rms']:.4e} (bar {RMS_BAR_RESNET})")
             if ret is not None:
                 raise AssertionError("the server returned decrypted outputs")
             if logits.shape != (10,) or not np.isfinite(logits).all():
@@ -2342,16 +2369,11 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
             if (any(r["plain_ntt_calls"].values()) or min(r["ntt_launches"].values()) <= 0
                     or r["keys_made"]):
                 raise AssertionError(f"the native ResNet request: {r}")
-            if not r["equals_segment"]:
-                raise AssertionError(f"the {kind} request's output ciphertexts differ from "
-                                     "the segment request's")
-            if r["path"] != (["segment", "streaming"] if jit else ["per_op", None]):
+            if r["path"] != ["segment", "streaming"]:
                 raise AssertionError(f"the {kind} request took {r['path']}")
-            want_boots = (planned if jit else
-                          dict(replayed=0, eager={"per_op": expected["bootstraps"]}))
-            if r["boots"] != want_boots or len(replay_s) != r["boots"]["replayed"]:
+            if r["boots"] != planned or len(replay_s) != r["boots"]["replayed"]:
                 raise AssertionError(f"the {kind} request's bootstraps {r['boots']}, "
-                                     f"planned {want_boots}")
+                                     f"planned {planned}")
     finally:
         del bs.bootstrap
         server.jit = True
@@ -2364,8 +2386,7 @@ def serve_resnet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, work, deep
                                 "ResNet native")
     log(f"[resnet native] timed request {out['request_s']:.3f} s (bootstraps "
         f"{requests['timed']['bootstraps_total_s']:.3f} s: {requests['timed']['boots']}, the "
-        f"rest {requests['timed']['segments_and_rest_s']:.3f} s), per-op "
-        f"{requests['per-op']['request_s']:.3f} s; segment == per-op byte for byte; peak "
+        f"rest {requests['timed']['segments_and_rest_s']:.3f} s); peak "
         f"{out['peak_bytes']} bytes")
     del server, client
     gc.collect()
@@ -3048,6 +3069,365 @@ def serve_native_n16(np, torch, HEVM, nk, ntt_mod, params, keydir):
     return out, prof["ntt_launches"], check
 
 
+SQUEEZENET_ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts",
+                              "squeezenet_dacapo40_tpu_n15b")
+SQUEEZENET_TRACE = os.path.join(REPO, "traced", "squeezenet_torch")     # gitignored
+
+
+def meminfo():
+    """The host's MemTotal and MemAvailable (bytes, /proc/meminfo) and this
+    process's resident bytes (VmRSS, /proc/self/status)."""
+    out = {}
+    for path, names in (("/proc/meminfo", ("MemTotal", "MemAvailable")),
+                        ("/proc/self/status", ("VmRSS",))):
+        with open(path) as f:
+            for line in f:
+                name, _, rest = line.partition(":")
+                if name in names:
+                    out[name] = int(rest.split()[0]) * 1024
+    return out
+
+
+def squeezenet_program(np, torch, prefix):
+    """The program a squeezenet_native phase serves, traced by the port into
+    SQUEEZENET_TRACE: (expected.json's entry, .cst, .hevm, packed input,
+    reference outputs (the exact-float simulation's, one array per result),
+    the torch model's outputs packed alike, postprocess). The whole network
+    (prefix False): the 10 logits, the simulation's from expected.json. Its
+    prefix (expected.json's "prefix": conv_1, avgpool_1 and the first Fire
+    modules at full width): every slot of each output ciphertext, the
+    simulation's run here (vm/simulate.py, held to expected.json's digest),
+    the torch model's activations packed by the output shapes' OutPack
+    (mpcb's "OP")."""
+    from dacapo_tpu_torch.examples.benchmarks.SqueezeNet import trace, get_model
+    from dacapo_tpu_torch.ir.serialize import read_cst
+    from dacapo_tpu_torch.models import cnn_he
+    from dacapo_tpu_torch.runtime.harness import trace_and_save
+    from dacapo_tpu_torch.vm.hevm import HEVMProgram
+    from dacapo_tpu_torch.vm.simulate import simulate
+    with open(os.path.join(SQUEEZENET_ART, "expected.json")) as f:
+        full = json.load(f)
+    want = full["prefix"] if prefix else full
+    name = "SqueezeNetPrefix" if prefix else "SqueezeNet"
+    nt = full["nt"]
+    model = get_model()
+    t0 = time.perf_counter()
+    if prefix:
+        fires = want["fires"]
+        trace_and_save(name, "c", lambda x: cnn_he.squeezenet_prefix_he_forward(
+            x, model, fires=fires, nt=nt), SQUEEZENET_TRACE)
+    else:
+        trace(dirs=SQUEEZENET_TRACE, nt=nt, model=model)
+    trace_s = time.perf_counter() - t0
+    cst = os.path.join(SQUEEZENET_TRACE, f"_hecate_{name}.cst")
+    hevm = os.path.join(SQUEEZENET_ART, f"{name}.hevm")
+    got = dict(hevm_sha256=sha256_file(hevm), cst_sha256=sha256_file(cst))
+    if any(got[k] != want[k] for k in got):
+        raise AssertionError(f"the {name} program or its trace differs from "
+                             f"expected.json: {got}")
+    x = torch.randn(1, 3, 32, 32, dtype=torch.double,
+                    generator=torch.Generator().manual_seed(100))
+    packed = cnn_he.cnn_pack_input(x.numpy(), model.conv_1.Conv2d, nt=nt)
+    with torch.no_grad():
+        if not prefix:
+            logits = model(x).numpy().ravel()
+            if not np.allclose(logits, full["golden_logits"], rtol=0, atol=1e-9):
+                raise AssertionError(f"torch model logits {logits} differ from "
+                                     "expected.json's")
+            return (want, cst, hevm, packed, [np.asarray(full["simulated_logits"])], [logits],
+                    lambda res: [cnn_he.resnet_postprocess(res[0])], trace_s)
+        act = cnn_he.squeezenet_prefix_torch(x, model, fires=want["fires"]).numpy()
+    golden = list(cnn_he.makeClose(cnn_he.squeezenet_prefix_shapes(
+        model, fires=want["fires"], nt=nt))["OP"](act))
+    sim = simulate(HEVMProgram.load(hevm), read_cst(cst), [packed], "tpu_n15b",
+                   steer="global")
+    ref = [np.asarray(v) for v, _ in sim.outputs]
+    digest = hashlib.sha256(b"".join(np.ascontiguousarray(v).tobytes() for v in ref))
+    if digest.hexdigest() != want["simulated_outputs_sha256"]:
+        raise AssertionError("the prefix's simulation differs from expected.json's")
+    return want, cst, hevm, packed, ref, golden, lambda res: list(res), trace_s
+
+
+def serve_squeezenet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, prefix=False):
+    """A squeezenet_native phase: SqueezeNet `dacapo 40` (the first model of
+    the deep list; the deterministic-random weights of
+    examples/benchmarks/SqueezeNet.py) served encrypted on tpu_n15b with
+    native bootstraps, its galois keys streamed from the host. prefix False:
+    the whole network (conv_1, eight Fire modules, conv_10, 10 pooled
+    logits), the committed artifacts/squeezenet_dacapo40_tpu_n15b/
+    SqueezeNet.hevm, on the card's own memory plan (734 keys, 57.7 GB, past
+    the 55 % key budget); scripts/torch_squeezenet_native.py runs it. prefix
+    True: its first part at full width (squeezenet_program),
+    SqueezeNetPrefix.hevm, under expected.json's DACAPO_TPU_HBM_BYTES plan,
+    which puts its keys past the key budget as the whole network's are on
+    the card; chip_smoke.py serves it. Each: the .hevm and the port's trace
+    (.cst) by SHA-256; the host's memory read before the first key (where it
+    cannot hold the keyset of expected.json's dry plan the run stops with
+    both numbers); a full HEVM("tpu_n15b", save_keys=False) on a fresh
+    keyset (nothing written) whose load makes the keys into pinned host
+    slabs, the graph windows reading theirs from the key arena and the native
+    bootstraps through the LRU; the bootstrap's planes get no room beside the
+    keys (plane bound 0: only the running signature's group stays); the
+    plaintexts stream from the compact pool. The input encrypted once, then
+    one timed segment request (the default jit="auto": every bootstrap eager
+    for "key_budget"), one profiled (device busy and idle share, NTT calls of
+    each mode on the device) and one per op (jit=False; it drops the
+    graphs). Each: RMS of the outputs against the exact-float simulation's
+    at most expected.json's bar, against the torch model reported beside it;
+    the bootstrap count, each bootstrap's seconds, key uploads and planes
+    encoded again; no key made after the load; no plain NTT call; the NTT in
+    both modes (the wrapper's launches plus the replayed graphs' records);
+    the output ciphertexts byte-equal to the segment request's. Then the
+    NTT at every batch size the phase launched, bit-equal to the plain NTT in
+    both modes. Returns (results, the timed request's NTT calls, the NTT
+    check)."""
+    from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper, native_config
+    tag = "[squeezenet prefix]" if prefix else "[squeezenet]"
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    expected, cst, hevm, packed, ref, golden, post, trace_s = squeezenet_program(
+        np, torch, prefix)
+    out = dict(trace_s=trace_s)
+    dry = expected["plan"]
+    hbm = expected.get("hbm_bytes")
+    env0 = os.environ.get("DACAPO_TPU_HBM_BYTES")
+    if hbm is not None:
+        os.environ["DACAPO_TPU_HBM_BYTES"] = str(hbm)
+
+    # the host holds the keyset: read its memory before the first key
+    release_host_cache(torch)
+    host0 = out["host_before_keys"] = meminfo()
+    log(f"{tag} traced in {trace_s:.2f} s; host memory before the keys: {host0}; the dry "
+        f"plan's keyset {dry['key_bytes']} bytes ({dry['galois_keys']} keys of "
+        f"{dry['key_bytes_each']} B); memory plan {hbm or 'the card'}")
+    if host0["MemAvailable"] < dry["key_bytes"]:
+        raise AssertionError(f"the host cannot hold the keyset: {host0['MemAvailable']} "
+                             f"bytes available, the keyset takes {dry['key_bytes']}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync()
+    vm = HEVM("tpu_n15b", keyset_dir=keydir, save_keys=False)
+    out["base_keygen_s"] = sync() - t0
+    bs = vm.scheme._native_bs
+    if (not isinstance(bs, NativeBootstrapper) or bs.cfg != native_config(vm.scheme.ctx.config)
+            or dataclasses.asdict(bs.cfg) != expected["bootstrap_config"]):
+        raise AssertionError(f"HEVM('tpu_n15b') built {bs!r}, not "
+                             f"{expected['bootstrap_config']}")
+    shapes = NttShapes()        # stopped after the last request
+    shapes.start()
+    boots = []
+    native = bs.bootstrap
+    try:
+        t0 = sync()
+        vm.load(cst, hevm)
+        out["load_s"] = sync() - t0
+        ex = vm.executor
+        keys = vm.scheme.keys
+        galois = keys.galois
+        kb = vm.scheme.galois_key_bytes()
+        planes = bs.cached_planes()
+        host1 = out["host_after_load"] = meminfo()
+        out.update(load_parts_s=vm.load_seconds, instructions=len(vm.prog.ops),
+                   galois_keys=len(galois), galois_keys_counted=ex.n_keys,
+                   key_bytes_counted=ex.key_bytes, key_budget=galois.budget,
+                   key_device_bytes=galois.device_bytes, key_slots=ex.key_arena(),
+                   pinned_slabs=len(galois._slabs or ()),
+                   pinned_slab_bytes=sum(s.nbytes for s in galois._slabs or ()),
+                   warmup=ex.bootstrap_stats, planes=planes, plane_budget=bs.plane_budget,
+                   capture=ex.capture_stats, streaming=ex.streaming,
+                   unique_plaintexts=ex.n_plains, plain_bytes=ex.plain_bytes,
+                   pool_bytes=ex.pool_bytes, plaintext_budget_bytes=ex._pt_budget,
+                   after_load_bytes=torch.cuda.memory_allocated(),
+                   peak_load_bytes=torch.cuda.max_memory_allocated(),
+                   keyset_files=sum(len(fs) for _, _, fs in os.walk(keydir)))
+        log(f"{tag} base keys {out['base_keygen_s']:.3f} s; load {out['load_s']:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in vm.load_seconds.items())
+            + f"); {out['instructions']} instructions; {len(galois)} galois keys + conjugation "
+            f"key ({ex.n_keys} counted, {ex.key_bytes} bytes, budget {galois.budget}; "
+            f"{out['pinned_slabs']} pinned slabs, {out['pinned_slab_bytes']} bytes; "
+            f"{out['key_slots']} arena slots, device key bytes {out['key_device_bytes']}); "
+            f"{ex.n_plains} unique plaintexts, streaming {ex.streaming} (pool {ex.pool_bytes}, "
+            f"resident {ex.plain_bytes}, budget {ex._pt_budget}); bootstrap signatures "
+            f"warmed {len(ex.bootstrap_stats['signatures'])}, planes {planes} under a bound of "
+            f"{bs.plane_budget} bytes; graphs {ex.capture_stats}; {out['after_load_bytes']} "
+            f"bytes allocated after load, peak {out['peak_load_bytes']}; host after the load "
+            f"{host1}")
+        if (ex.bootstrap_stats["signatures"] != expected["boot_signatures"]
+                or len(galois) != dry["galois_keys"] - 1 or keys.conj is None
+                or ex.n_keys + 1 != dry["galois_keys"]):
+            raise AssertionError(f"{tag} the load made {len(galois)} keys, warmed "
+                                 f"{ex.bootstrap_stats['signatures']}; expected.json: "
+                                 f"{dry['galois_keys']} keys, {expected['boot_signatures']}")
+        if (galois.budget is None or bs.plane_budget != 0 or out["keyset_files"]
+                or ex.streaming != dry["plaintexts_stream"]
+                or ex.n_plains != dry["unique_plaintexts"]
+                or not {"galois_keygen", "key_pin", "bootstrap_warmup", "key_arena",
+                        "capture"} <= set(vm.load_seconds)
+                or "boot_capture" in vm.load_seconds):
+            raise AssertionError(f"{tag} the load: {vm.load_seconds}, key budget "
+                                 f"{galois.budget}, plane bound {bs.plane_budget}, streaming "
+                                 f"{ex.streaming}, {out['keyset_files']} keyset files")
+        plan = out["boot_plan"] = [[wi, list(sig), why] for wi, sig, why in ex.boot_plan()]
+        if len(plan) != expected["bootstraps"] or any(why != "key_budget"
+                                                      for *_, why in plan):
+            raise AssertionError(f"{tag} the boot windows: {plan}")
+
+        def timed_bootstrap(data, nl, sc, target):
+            up0, re0, ev0 = galois.uploads, bs.reencodes, bs.evictions
+            t0 = sync()
+            res = native(data, nl, sc, target)
+            boots.append(dict(s=sync() - t0, signature=[nl, sc, target],
+                              key_uploads=galois.uploads - up0,
+                              key_upload_bytes=(galois.uploads - up0) * kb,
+                              planes_reencoded=bs.reencodes - re0,
+                              groups_dropped=bs.evictions - ev0))
+            return res
+
+        bs.bootstrap = timed_bootstrap
+        t0 = sync()
+        vm.setInput(0, packed)
+        out["encrypt_s"] = sync() - t0
+        first = None
+
+        def rms(a, b):
+            return float(np.sqrt(np.mean((np.concatenate(a) - np.concatenate(b)) ** 2)))
+
+        def request(kind, jit, want_boots):
+            nonlocal first
+            vm.jit = jit
+            reset_counts(nk, ntt_mod)
+            calls0, n_keys0, ntt0 = bs.calls, len(galois), graph_ntt(ex)
+            up0, staged0 = galois.uploads, dict(ex.key_staging)
+            re0, ev0, replays0 = bs.reencodes, bs.evictions, ex.replays
+            boots.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = sync()
+            vm.run()
+            request_s = sync() - t0
+            res = post(vm.getOutput())
+            outs = [c.clone() for c in ex._last_outputs[0]]
+            if first is None:
+                first = outs
+            r = dict(
+                request_s=request_s, path=list(ex.last_path), boots=ex.last_bootstraps,
+                bootstraps=bs.calls - calls0, bootstrap_s=sum(b["s"] for b in boots),
+                per_bootstrap=list(boots), graph_replays=ex.replays - replays0,
+                eager_ntt_launches=dict(nk.LAUNCHES),
+                ntt_launches={k: nk.LAUNCHES[k] + v - ntt0[k]
+                              for k, v in graph_ntt(ex).items()},
+                plain_ntt_calls=dict(ntt_mod.CALLS), keys_made=len(galois) - n_keys0,
+                key_uploads=galois.uploads - up0,
+                key_upload_bytes=(galois.uploads - up0) * kb,
+                key_staging={k: v - staged0[k] for k, v in ex.key_staging.items()},
+                planes_reencoded=bs.reencodes - re0, plane_groups_dropped=bs.evictions - ev0,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                key_device_bytes_peak=galois.peak_bytes,
+                rms_vs_simulation=rms(res, ref), rms_vs_torch=rms(res, golden),
+                equals_segment=all(torch.equal(a, b) for a, b in zip(outs, first)))
+            if not prefix:
+                r["logits"] = res[0].tolist()
+            r["rest_s"] = request_s - r["bootstrap_s"]
+            span = lambda v: f"{min(v):.3f}-{max(v):.3f}" if v else "none"
+            log(f"{tag} {kind} request (jit={jit}: {r['path']}) {request_s:.3f} s: "
+                f"{r['bootstraps']} native bootstraps {r['bootstrap_s']:.3f} s ({r['boots']}; "
+                f"each {span([b['s'] for b in boots])} s), the rest {r['rest_s']:.3f} s, "
+                f"{r['graph_replays']} graph replays; key uploads {r['key_uploads']} "
+                f"({r['key_upload_bytes']} bytes; arena copies {r['key_staging']}); plane "
+                f"groups dropped {r['plane_groups_dropped']}, planes encoded again "
+                f"{r['planes_reencoded']}; NTT calls {r['ntt_launches']} (launched outside "
+                f"graphs {r['eager_ntt_launches']}), plain NTT calls {r['plain_ntt_calls']}; "
+                f"keys made {r['keys_made']}; peak {r['peak_bytes']} bytes; rms "
+                f"{r['rms_vs_simulation']:.4e} against the simulation (bar "
+                f"{expected['rms_bar']}), {r['rms_vs_torch']:.4e} against the torch model "
+                f"(the simulation's {expected['simulated_rms_vs_torch']:.4e}); output "
+                f"ciphertexts byte-equal to the segment request's: {r['equals_segment']}")
+            for i, b in enumerate(boots):
+                log(f"{tag}   bootstrap {i}: {b['s']:.3f} s, signature "
+                    f"{b['signature'][0]} rows 2^{np.log2(b['signature'][1]):.6f} -> level "
+                    f"{b['signature'][2]}, key uploads {b['key_uploads']} "
+                    f"({b['key_upload_bytes']} B), planes encoded again "
+                    f"{b['planes_reencoded']}, groups dropped {b['groups_dropped']}")
+            if (len(res) != len(ref) or any(a.shape != b.shape for a, b in zip(res, ref))
+                    or not all(np.isfinite(a).all() for a in res)):
+                raise AssertionError(f"{tag} bad output ({kind})")
+            if not r["rms_vs_simulation"] <= expected["rms_bar"] or (
+                    prefix and not r["rms_vs_torch"] <= expected["rms_bar"]):
+                raise AssertionError(f"{tag} rms {r['rms_vs_simulation']} against the "
+                                     f"simulation, {r['rms_vs_torch']} against the torch "
+                                     f"model, bar {expected['rms_bar']} ({kind})")
+            want_path = ["per_op", None] if jit is False else ["segment", None]
+            if (r["path"] != want_path or r["bootstraps"] != expected["bootstraps"]
+                    or r["boots"] != want_boots or len(boots) != r["bootstraps"]):
+                raise AssertionError(f"{tag} the {kind} request: path {r['path']}, "
+                                     f"bootstraps {r['bootstraps']} {r['boots']}")
+            if (min(r["ntt_launches"].values()) <= 0 or any(r["plain_ntt_calls"].values())
+                    or r["keys_made"] or not r["equals_segment"]):
+                raise AssertionError(f"{tag} the {kind} request: {r}")
+            return r
+
+        n_boot = expected["bootstraps"]
+        segment = dict(replayed=0, eager={"key_budget": n_boot})
+        requests = out["requests"] = {}
+        requests["segment"] = request("segment", "auto", segment)
+
+        def profiled():
+            boots.clear()
+            vm.run()
+
+        prof = out["profiled_request"] = profile_request(torch, profiled, tag[1:-1], ex, nk,
+                                                         ntt_mod, cpu=False, trace_loss_ok=True)
+        res = post(vm.getOutput())
+        prof.update(path=list(ex.last_path), boots=ex.last_bootstraps,
+                    planes_reencoded=sum(b["planes_reencoded"] for b in boots),
+                    key_uploads=sum(b["key_uploads"] for b in boots),
+                    key_upload_bytes=sum(b["key_upload_bytes"] for b in boots),
+                    rms_vs_simulation=rms(res, ref), rms_vs_torch=rms(res, golden),
+                    equals_segment=all(torch.equal(a, b)
+                                       for a, b in zip(ex._last_outputs[0], first)))
+        log(f"{tag} profiled request: {prof['boots']}, planes encoded again "
+            f"{prof['planes_reencoded']}, key uploads {prof['key_uploads']} "
+            f"({prof['key_upload_bytes']} B), rms {prof['rms_vs_simulation']:.4e}, byte-equal "
+            f"{prof['equals_segment']}")
+        if (min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values())
+                or prof["boots"] != segment or prof["path"] != ["segment", None]
+                or not prof["equals_segment"]
+                or not prof["rms_vs_simulation"] <= expected["rms_bar"]):
+            raise AssertionError(f"{tag} the profiled request: NTT {prof['ntt_launches']}, "
+                                 f"plain {prof['plain_ntt_calls']}, {prof['boots']}, path "
+                                 f"{prof['path']}, rms {prof['rms_vs_simulation']}")
+        requests["per_op"] = request("per-op", False, dict(replayed=0, eager={"per_op": n_boot}))
+    finally:
+        bs.__dict__.pop("bootstrap", None)
+        shapes.stop()
+        vm.jit = "auto"
+        if hbm is not None:
+            if env0 is None:
+                os.environ.pop("DACAPO_TPU_HBM_BYTES")
+            else:
+                os.environ["DACAPO_TPU_HBM_BYTES"] = env0
+    out["host_after_requests"] = meminfo()
+    out["request_s"] = requests["segment"]["request_s"]
+    out["peak_bytes"] = max([out["peak_load_bytes"]]
+                            + [r["peak_bytes"] for r in requests.values()])
+    log(f"{tag} segment request {out['request_s']:.3f} s (bootstraps "
+        f"{requests['segment']['bootstrap_s']:.3f} s), per op "
+        f"{requests['per_op']['request_s']:.3f} s; the three byte-equal; profiled: device "
+        f"busy {prof['device_busy_s']} s of {prof['wall_s']:.4f} s (idle share "
+        f"{prof['idle_share']}), NTT calls on the device {prof['ntt_launches']}; peak "
+        f"{out['peak_bytes']} bytes")
+    del vm, ex, bs, keys, galois, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["host_cache_released"] = release_host_cache(torch)
+    shutil.rmtree(SQUEEZENET_TRACE)
+    # the card is empty again: the plain NTT is timed at the largest size too
+    check = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n15b", sorted(shapes.sizes),
+                                tag[1:-1], plain_up_to=None)
+    return out, requests["segment"]["ntt_launches"], check
+
+
 def main():
     import numpy as np
     import torch
@@ -3186,6 +3566,14 @@ def main():
             "resnet_native", serve_resnet_native, np, torch, HEVM, nk, ntt_mod, params,
             keys_n15b.name, work.name, (deep_whole["files"], deep_whole["blobs"]))
     keys_n15b.cleanup()
+    # SqueezeNet's prefix on tpu_n15b, every earlier VM freed, under the
+    # memory plan that streams its keys from pinned host memory (the whole
+    # network: scripts/torch_squeezenet_native.py)
+    with tempfile.TemporaryDirectory(prefix="hevm_keys_squeezenet_") as keys_sq:
+        report["squeezenet_native"], by_path["squeezenet_prefix_tpu_n15b_request"], \
+            report["ntt_batch"]["squeezenet_prefix_tpu_n15b"] = timed(
+                "squeezenet_native", serve_squeezenet_native, np, torch, HEVM, nk, ntt_mod,
+                params, keys_sq, True)
     # the native bootstrap at N = 2^16 on its own keyset (~35 GB written by
     # the full VM's load), every earlier VM freed
     with tempfile.TemporaryDirectory(prefix="hevm_keys_n16_") as keys_n16:
@@ -3223,7 +3611,9 @@ def main():
                               "path (ntt_pass kernels in the trace, graph replays "
                               "included; the basic path: the five rows' server requests "
                               "summed); tpu_n16 and the profile phase (no graphs): the "
-                              "wrapper's count"),
+                              "wrapper's count; the native ResNet and SqueezeNet requests: "
+                              "the wrapper's launches plus the replayed graphs' capture "
+                              "records"),
             launches_by_path={k: v[name] for k, v in by_path.items()},
             launches_per_ciphertext={k: v[name] / per_ct.get(k, 1) for k, v in by_path.items()},
             batch_shapes=batch_shapes,

@@ -5,12 +5,17 @@ equivalents, plus keygen and the op profiler (port of dacapo_tpu/cli.py).
     python -m dacapo_tpu_torch.cli opt --pipeline dacapo --waterline 40 \\
         traced/<Bench>.eir.json -o optimized/dacapo/<Bench>.40
     python -m dacapo_tpu_torch.cli test <Bench> <pipeline> <waterline> [profile] \
-        [--device cpu]
+        [--nt 16384] [--device cpu] [--keys-in-memory]
     python -m dacapo_tpu_torch.cli keygen [profile] [--dir DIR]
     python -m dacapo_tpu_torch.cli profile [profile] [-o PATH] [--iters 10]
 
 <Bench> names a module of dacapo_tpu_torch/examples/{benchmarks,tests}.
 `test`, `keygen` and `profile` run on the card unless given --device cpu.
+`test --nt` packs the benchmark's input into that many slots (the trace's
+`--nt`; the example's own default when absent): a profile with 2^14 slots,
+tpu_n15b, needs `--nt 16384`. `test --keys-in-memory` keeps the keys the
+full VM makes in memory and writes none (SqueezeNet on tpu_n15b makes
+57.7 GB of them).
 `keygen` writes the runner's keyset fingerprint into params.json, so a full
 HEVM reuses the keyset and a server HEVM accepts it; its default directory
 is the runner's, ~/.hevm/torch/<profile>. `opt` hands the ELASM options to
@@ -61,7 +66,9 @@ def _cmd_opt(args):
 def _cmd_test(args):
     """Run an optimized benchmark under the HE VM against its golden (hc-test)."""
     mod = importlib.import_module(f"dacapo_tpu_torch.examples.tests.{args.bench}")
-    mod.run(args.pipeline, args.waterline, profile=args.profile, device=args.device)
+    kw = {} if args.nt is None else dict(nt=args.nt)
+    mod.run(args.pipeline, args.waterline, profile=args.profile, device=args.device,
+            save_keys=not args.keys_in_memory, **kw)
 
 
 def _cmd_profile(args):
@@ -120,7 +127,11 @@ def main(argv=None):
     s.add_argument("pipeline")
     s.add_argument("waterline", type=int)
     s.add_argument("profile", nargs="?", default=None)
+    s.add_argument("--nt", type=int, default=None,
+                   help="slots the input is packed into (default: the example's)")
     s.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    s.add_argument("--keys-in-memory", action="store_true",
+                   help="write none of the keys the full VM makes")
     s.set_defaults(fn=_cmd_test)
 
     pr = sub.add_parser("profile", help="measure per-op latency tables")

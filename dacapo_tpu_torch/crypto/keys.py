@@ -15,7 +15,8 @@ full keys, as the JAX package writes them.
 """
 
 import os
-from collections import OrderedDict
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -251,7 +252,7 @@ class KeyGenerator:
     def _gauss(self):
         return np.round(self.rng.normal(0.0, 3.2, size=self.ctx.n)).astype(np.int64)
 
-    def _uniform_planes(self, rows):
+    def _uniform_host(self, rows):
         # row by row, as uint32: the draws of one call with a bound per row
         # into int64 (numpy's bounded draws below 2^32 take one 32-bit
         # output each, for either dtype, in the same order), a quarter
@@ -260,7 +261,32 @@ class KeyGenerator:
         u = np.empty((len(rows), self.ctx.n), dtype=np.uint32)
         for i, r in enumerate(rows):
             u[i] = self.rng.integers(0, self.ctx.primes[r], size=self.ctx.n, dtype=np.uint32)
-        return to_dev(u, self.ctx.device)
+        return u
+
+    def _uniform_planes(self, rows):
+        return to_dev(self._uniform_host(rows), self.ctx.device)
+
+    def _ksk_draws(self):
+        """The host draws of one key-switch key, in _ksk's order: each
+        digit's uniform planes over the full basis, then its error."""
+        all_rows = list(range(self.ctx.config.num_all))
+        return [(self._uniform_host(all_rows), self._gauss())
+                for _ in range(self.ctx.config.dnum)]
+
+    def _draws_ahead(self, n_keys, depth=2):
+        """_ksk_draws of n_keys keys, in order, drawn by one thread at most
+        `depth` keys ahead of the caller, which meanwhile makes the keys
+        before them on the device: the same draws in the same order as a
+        plain loop (numpy's bounded draws release the GIL), so the same
+        keys; only a key that raises leaves the generator up to `depth`
+        keys' draws further on."""
+        with ThreadPoolExecutor(1) as pool:
+            pending = deque(pool.submit(self._ksk_draws) for _ in range(min(depth, n_keys)))
+            for i in range(n_keys):
+                out = pending.popleft().result()
+                if i + depth < n_keys:
+                    pending.append(pool.submit(self._ksk_draws))
+                yield out
 
     def _ntt_planes(self, coeffs: np.ndarray, rows):
         return self.ev.ntt(self.ev.residues(coeffs, rows), rows)
@@ -299,11 +325,11 @@ class KeyGenerator:
                 f"the keyset has no secret key and lacks the galois keys of rotation "
                 f"steps {missing[:8]}{' ...' if len(missing) > 8 else ''}: generate "
                 "the full keyset for this program first (a full HEVM's load)")
-        for st in rot_steps:
-            st = st % half
-            if st not in keyset.galois and st != 0:
-                s_rot = self.ev.automorphism(keyset.s_ntt, st)
-                keyset.galois[st] = self._ksk(keyset.s_ntt, s_rot)
+        todo = list(dict.fromkeys(st % half for st in rot_steps
+                                  if st % half and st % half not in keyset.galois))
+        for st, draws in zip(todo, self._draws_ahead(len(todo))):
+            s_rot = self.ev.automorphism(keyset.s_ntt, st)
+            keyset.galois[st] = self._ksk(keyset.s_ntt, s_rot, draws)
         return keyset
 
     def ensure_conj(self, keyset: KeySet):
@@ -317,9 +343,10 @@ class KeyGenerator:
             keyset.conj = self._ksk(keyset.s_ntt, s_conj)
         return keyset
 
-    def _ksk(self, s_ntt, target_ntt):
+    def _ksk(self, s_ntt, target_ntt, draws=None):
         """Key-switch key from key `target` to key `s`:
-        ksk_j = (-a_j s + e_j + [P*Q̂_j^{full}]*target, a_j) over the full QP basis."""
+        ksk_j = (-a_j s + e_j + [P*Q̂_j^{full}]*target, a_j) over the full QP basis.
+        draws: its host draws made ahead (_ksk_draws), else drawn here."""
         ctx = self.ctx
         cfg = ctx.config
         all_rows = list(range(cfg.num_all))
@@ -332,8 +359,12 @@ class KeyGenerator:
                 qj *= ctx.q_primes[r]
             factor_int = ctx.p_prod * (ctx.q_full // qj)
             fac = np.array([factor_int % p for p in ctx.primes], dtype=np.uint32)
-            a_j = self._uniform_planes(all_rows)
-            e_j = self._ntt_planes(self._gauss(), all_rows)
+            if draws is None:
+                a_j = self._uniform_planes(all_rows)
+                e_j = self._ntt_planes(self._gauss(), all_rows)
+            else:
+                a_j = to_dev(draws[j][0], ctx.device)
+                e_j = self._ntt_planes(draws[j][1], all_rows)
             msg = mul_mod(to_dev(fac[:, None], ctx.device), target_ntt, q)
             b_j = add_mod(add_mod(neg_mod(mul_mod(a_j, s_ntt, q), q), e_j, q), msg, q)
             digits.append(torch.stack([b_j, a_j]))

@@ -139,12 +139,52 @@ class Evaluator:
         """int32 [..., len(rows), N] residues of an encode's float64 scaled
         coefficients mod the rows' primes, the integers the encoder's
         _rns_residues gives: rounded and reduced on the device (residues)
-        where every one is below INT64_BOUND, its int64 branch; else by the
-        encoder on the host."""
+        where every one is below INT64_BOUND, its int64 branch; else its
+        mantissa/exponent branch, reduced on the device too
+        (big_residues)."""
         if prod.size == 0 or np.abs(prod).max() < INT64_BOUND:
             return self.residues(np.round(prod).astype(np.int64), rows)
-        return to_dev(encoder._rns_residues(prod, None, primes=[self.ctx.primes[r] for r in rows]),
-                      self.device)
+        return self.big_residues(prod, rows)
+
+    # elements of one int64 temporary of big_residues (2^26: 512 MB)
+    BIG_RESIDUES_ELEMS = 1 << 26
+
+    def big_residues(self, prod, rows):
+        """int32 [..., len(rows), N] residues of float64 coefficients some of
+        which pass INT64_BOUND, the integers Encoder._rns_residues gives for
+        them: each split on the host as there, prod = mi * 2^k with |mi| <=
+        2^53 (rounded where k < 0), and reduced on the device as (mi mod q) *
+        (2^k mod q) mod q, every product below 2^62. A bootstrap's diagonals
+        encode at ~2^60 and take this branch: on the host, one prime at a
+        time, it was most of a plane's encode (a native bootstrap under a
+        plane bound of 0 encodes 1,332 planes again)."""
+        prod = np.asarray(prod, dtype=np.float64)
+        if not np.isfinite(np.abs(prod).max()):
+            raise OverflowError("encode: scale overflows float64 range")
+        mant, ex = np.frexp(prod)
+        mi = np.round(mant * 2.0 ** 53).astype(np.int64)       # prod = mi * 2^k
+        k = (ex - 53).astype(np.int64)
+        small = k < 0                                          # |prod| < 2^53
+        c_small = np.round(np.where(small, prod, 0.0)).astype(np.int64)
+        kmax = int(k.max())
+        primes = np.asarray([int(self.ctx.primes[r]) for r in rows], dtype=np.int64)
+        powtab = np.empty((len(primes), kmax + 1), dtype=np.int64)   # 2^j mod q
+        powtab[:, 0] = 1
+        for j in range(1, kmax + 1):
+            powtab[:, j] = powtab[:, j - 1] * 2 % primes
+        dev = lambda a: upload(torch.from_numpy(np.ascontiguousarray(a)), self.device)
+        n = prod.shape[-1]
+        flat = [dev(a.reshape(-1, n)) for a in (mi, np.clip(k, 0, None), small, c_small)]
+        pw_tab = dev(powtab)
+        q = self._q(rows).to(torch.int64)                      # [R, 1]
+        out = torch.empty((flat[0].shape[0], len(primes), n), dtype=torch.int32,
+                          device=self.device)
+        step = max(1, self.BIG_RESIDUES_ELEMS // (len(primes) * n))
+        for i in range(0, out.shape[0], step):
+            m, kc, sm, cs = (t[i: i + step, None, :] for t in flat)     # [b, 1, N]
+            pw = pw_tab[:, kc[:, 0, :]].transpose(0, 1)                 # [b, R, N]
+            out[i: i + step] = torch.where(sm, cs % q, m % q * pw % q).to(torch.int32)
+        return out.reshape(prod.shape[:-1] + (len(primes), n))
 
     def _rows(self, rows):
         """Row-index tensor of the NTT: int32 (kernel) or int64 (plain)."""

@@ -60,8 +60,12 @@ class Scheme:
     def set_key_budget(self, budget_bytes):
         """Bound device-resident galois-key bytes (host-backed LRU beyond;
         the executor's graph windows read theirs from its slot arena, which
-        shares the budget and is made again after a change)."""
+        shares the budget and is made again after a change). Under a budget
+        the host copies live in pinned slabs (GaloisStore.pin_host) from
+        now on: the keys made later go straight into them."""
         self.keys.galois.set_budget(budget_bytes)
+        if budget_bytes is not None:
+            self.keys.galois.pin_host()
 
     def galois_key_bytes(self):
         """Device bytes of ONE rotation key for this context (its shard's,

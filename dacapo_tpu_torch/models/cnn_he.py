@@ -321,3 +321,56 @@ def trace_resnet(out_dir, model, nt=2 ** 14, bb=32, h0=32, w0=32, cst_dir=None):
 
     hc.func("c")(ResNet)
     return hc.save(out_dir, cst_dir or out_dir)
+
+
+def squeezenet_prefix_he_forward(ctxt, model, fires=1, nt=2 ** 16, act=HE_SiLU, bb=32,
+                                 use_bootstrap=True):
+    """The first part of squeezenet_he_forward at full width: conv_1 (ConvBN
+    + SiLU), avgpool_1 and the first `fires` Fire modules (fire_2, fire_3,
+    fire_4), traced op for op as there. Returns every ciphertext of the
+    last Fire module's concatenation, its channels packed as the shapes
+    squeezenet_prefix_shapes gives (their OutPack). chip_smoke.py serves
+    this prefix; scripts/torch_squeezenet_native.py the whole network."""
+    bs = hc.bootstrap if use_bootstrap else (lambda x: x)
+    out = _wrap(ctxt)
+    block_in = {"nt": nt, "bb": bb, "ko": 1, "ho": 32, "wo": 32}
+
+    cs = CascadeConv(block_in, model.conv_1.Conv2d)
+    out = HE_ConvBN(makeClose(cs), out, model.conv_1.Conv2d, model.conv_1.bn)
+    out = act(bs(out))
+    block_in = cs
+    ps = CascadeMax(block_in, model.avgpool_1)
+    out = HE_Avg(makeClose(ps), out)
+    block_in = ps
+
+    for f in (model.fire_2, model.fire_3, model.fire_4)[:fires]:
+        sq = CascadeConv(block_in, f.squeeze.Conv2d)
+        out = HE_ConvBN(makeClose(sq), bs(out), f.squeeze.Conv2d, f.squeeze.bn)
+        out = act(bs(out))
+        e1 = CascadeConv(sq, f.expand1x1)
+        out1 = HE_Conv(makeClose(e1), out, f.expand1x1)
+        e3 = CascadeConv(sq, f.expand3x3)
+        out2 = HE_Conv(makeClose(e3), out, f.expand3x3)
+        block_in = CascadeConcat(e1, e3)
+        out = HE_Concat(makeClose(block_in), out1, out2)
+    return list(out)
+
+
+def squeezenet_prefix_shapes(model, fires=1, nt=2 ** 16, bb=32):
+    """The MPCB shapes of squeezenet_prefix_he_forward's output (the last
+    Fire module's concatenation)."""
+    block_in = CascadeMax(CascadeConv({"nt": nt, "bb": bb, "ko": 1, "ho": 32, "wo": 32},
+                                      model.conv_1.Conv2d), model.avgpool_1)
+    for f in (model.fire_2, model.fire_3, model.fire_4)[:fires]:
+        sq = CascadeConv(block_in, f.squeeze.Conv2d)
+        block_in = CascadeConcat(CascadeConv(sq, f.expand1x1), CascadeConv(sq, f.expand3x3))
+    return block_in
+
+
+def squeezenet_prefix_torch(x, model, fires=1):
+    """The torch model's activations where squeezenet_prefix_he_forward
+    stops: conv_1, avgpool_1, the first `fires` Fire modules."""
+    out = model.avgpool_1(model.conv_1(x))
+    for f in (model.fire_2, model.fire_3, model.fire_4)[:fires]:
+        out = f(out)
+    return out

@@ -54,16 +54,20 @@ def compile_traced(name, pipeline, waterline, profile,
 
 def run_test(name, pipeline, waterline, profile, inputs, golden,
              postprocess=None, traced_dir="traced", out_dir="optimized",
-             jit="auto", warmup=None, device=None):
+             jit="auto", warmup=None, device=None, save_keys=True):
     """Load the traced and compiled `name`, run it encrypted on `inputs`,
     compare with `golden` and print the report. Returns (output, latency
     seconds, RMS).
+
+    save_keys: the full VM writes the keys it makes to its keyset
+    directory (HEVM's default); False keeps them in memory only, for a
+    keyset too large to write (SqueezeNet on tpu_n15b: 734 keys, 57.7 GB).
 
     warmup: untimed runs first; by default 1 on the card (the first request
     builds the Evaluator's device tables) and 0 on the CPU. The latency is a
     host clock around one run() that ends in torch.cuda.synchronize() on the
     card (run() decrypts to host arrays in full mode)."""
-    hevm = HEVM(profile=profile, device=device, jit=jit)
+    hevm = HEVM(profile=profile, device=device, jit=jit, save_keys=save_keys)
     on_card = hevm.device.type == "cuda"
     if warmup is None:
         warmup = 1 if on_card else 0

@@ -545,10 +545,16 @@ class HEVMExecutor:
         path first drops the native bootstrap's graphs, which releases
         their pinned planes, and the whole-program graph's, to its bound
         (graph_epoch: the next segment or whole-program request captures
-        them again)."""
+        them again). With streaming plaintexts it drops every graph of the
+        executor too: the per-op path's plaintext LRU may take its whole
+        budget, which the memory plan never left to the graphs' pools
+        (SqueezeNet on tpu_n15b: 11.7 GB of segment graphs beside a 10.2 GB
+        LRU pass an 80 GB card)."""
         if path == "per_op" and isinstance(self.bootstrapper, NativeBootstrapper):
             self.bootstrapper.drop_graphs()
             self._boot_dep = None
+        if path == "per_op" and self._streaming:
+            self._captured = self._captured_batch = None
         if self._path_budgets is None:
             return
         self._lru_budget, planes = self._path_budgets[path]
@@ -1349,9 +1355,12 @@ class HEVMExecutor:
                   file=sys.stderr)
         maps, start, copies = plan_key_slots(seq, n)
         cfg = self.s.ctx.config
+        # the LRU evicts to the budget's rest first: a load's bootstrap
+        # warm-up may have left the LRU holding the bootstrap's keys
+        # (SqueezeNet on tpu_n15b: 12 GB beside a 46.6 GB arena)
+        galois.reserve(n * kb + conj)
         data = torch.empty((n, cfg.dnum, 2, self.ev.key_rows(), self.s.ctx.n),
                            dtype=torch.int32, device=galois.device)
-        galois.reserve(n * kb + conj)
         self._arena_serial += 1
         arena = self._arena = dict(
             galois=galois, budget=galois.budget, serial=self._arena_serial,

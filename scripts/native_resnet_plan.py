@@ -19,7 +19,9 @@ It makes no key and encodes nothing:
   real ones, so the counts are what a load's warm-up makes, signature by
   signature;
 * the distinct galois keys (the program's offsets and the bootstrap's
-  rotation steps) and the conjugation key, against the key budget;
+  rotation steps) and the conjugation key, against the key budget (past it
+  the device holds the budget's bytes: the graph windows' key arena and the
+  LRU the native bootstrap reads through);
 * the plaintexts resident as NTT planes against the plaintext budget, and
   the compact pool that replaces them past it;
 * the bounds the executor puts on those planes, path by path
@@ -234,6 +236,9 @@ def plan(prog, constants, profile, hbm):
     deep = plan_deep_diagonals()
     boot_work = DEEP_REQUEST_PEAK - DEEP_KEY_BYTES - deep
     keys_bytes = n_keys * key_each
+    # past the budget the keys stay in pinned host memory and the device
+    # holds the graph windows' arena and the LRU inside the budget
+    key_device = min(keys_bytes, key_budget)
     plaintext_bytes = pool if streams else resident
     # the bounds the executor plans, path by path (_plan_bootstrap_planes),
     # each over the load's warm-up (each signature once) and two requests
@@ -246,7 +251,7 @@ def plan(prog, constants, profile, hbm):
         bounded, _, _ = dry_bootstraps(profile, sigs + seq + seq, bs_config, budget=room,
                                        sequence=[(nl, sc) for nl, sc, _ in seq])
         held = max(a["diagonal_bytes"] + a["constant_bytes"] for a in bounded)
-        total = keys_bytes + held + plaintext_bytes + lru + graph_pool + boot_work
+        total = key_device + held + plaintext_bytes + lru + graph_pool + boot_work
         second = bounded[n_warm + len(seq) - 1]
         paths[path] = dict(
             plaintext_lru_bytes=lru, plane_budget=room, plane_bytes_held_most=held,
@@ -255,7 +260,8 @@ def plan(prog, constants, profile, hbm):
             evictions_per_request=bounded[-1]["evictions"] - second["evictions"],
             predicted_device_bytes=int(total), headroom=1 - total / hbm)
     unbounded = after[-1]["diagonal_bytes"] + after[-1]["constant_bytes"]
-    total = keys_bytes + unbounded + plaintext_bytes + budgets["segment"][0] + graph_pool + boot_work
+    total = (key_device + unbounded + plaintext_bytes + budgets["segment"][0] + graph_pool
+             + boot_work)
     paths["segment_unbounded"] = dict(
         plaintext_lru_bytes=budgets["segment"][0], plane_budget=None,
         plane_bytes_held_most=unbounded, reencoded_planes_warmup=0,
@@ -270,6 +276,7 @@ def plan(prog, constants, profile, hbm):
         shared_rotation_keys=len(prog_steps & set(boot_steps)), conjugation_key=conj,
         galois_keys=n_keys, key_bytes_each=key_each, key_bytes=keys_bytes,
         key_budget=key_budget, keys_stream=keys_bytes > key_budget,
+        key_device_bytes=key_device,
         unique_plaintexts=len(cid_info), resident_plaintext_bytes=resident,
         plaintext_budget=pt_budget, plaintexts_stream=streams, pool_bytes=pool,
         top_ciphertext_rows=top_rows, graph_pool_estimate_bytes=int(graph_pool),
