@@ -47,21 +47,18 @@
    generated; the load captures the device oracle's graphs, one per cache
    key, and the segment graphs), times keygen / galois keygen / pre-encode /
    oracle capture / capture and reports the plaintext and key bytes and the
-   graphs' count; serves TIMED_REQUESTS timed segmented requests, checks the
+   graphs' count; serves TIMED_REQUESTS_SHORT timed segmented requests, checks the
    RMS of the 10 logits of each against the torch model (bar 9.5152e-4, the
    reference's), that 19 bootstraps ran in each, each one a replay of an
-   oracle graph captured at load, and that the plain NTT never ran; reruns
-   the last timed request per-op (jit=False, which replays the same oracle
-   graphs) with both generators restored (the key generator's, which
-   encrypts the input, and the oracle's on the card) and requires bit-equal
-   output ciphertexts; reports peak device memory, times one request's
-   windows by kind (a synchronize after each window: the boot windows'
-   seconds) and profiles one more segmented request (oracle seconds, host
-   launch calls, idle share, kernels per graph launch) in which both kernel
-   modes must have run, counted on the device as in 6; then the batch part
+   oracle graph captured at load, that both kernel modes ran (the wrapper's
+   launches and the replayed graphs' records) and that the plain NTT never
+   ran; reports peak device memory and times one request's windows by kind
+   (a synchronize after each window: the boot windows' seconds); the per-op
+   rerun of this request (both generators restored) is the streaming
+   part's, below, held to this request's output; then the batch part
    on the same HEVM (keys and plaintexts shared): precompile_batch(4)
    captures the batch graphs (the oracle's, one per cache key and B, and
-   the segments'), TIMED_REQUESTS timed batch requests of the test images of seeds
+   the segments'), TIMED_REQUESTS_SHORT timed batch requests of the test images of seeds
    100-103 (setInputBatch, runBatch), every row's RMS held to the same bar,
    19 batched oracle graph replays and no plain NTT call in each, and one
    profiled batch request; seconds a batch and a ciphertext beside the B=1
@@ -78,9 +75,10 @@
    replayed, the planned key copies and no LRU upload, device key bytes
    (arena and LRU) within the budget; the resident VM's timed request
    (argument and oracle draws restored) gives the resident VM's output
-   ciphertexts on the segment path and per-op through the LRU; one request
-   profiled (idle share, the key copies' device time), and the decode of
-   one request profiled alone (device time, NTT and the rest apart); pool
+   ciphertexts on the segment path and per-op through the LRU (the
+   resident VM's per-op rerun); the timed request's NTT calls
+   counted (wrapper and graph records), and the decode of one request
+   profiled alone (device time, NTT and the rest apart); pool
    bytes against resident plaintext bytes, both VMs' peaks; the earlier
    phases' VMs must all stay resident (streaming: false);
 8. runs Scheme("tpu_n16", seed=5) on the card: keygen, encrypt two vectors,
@@ -101,13 +99,15 @@
    plain NTT never), rerun per-op with the input RNG restored (bit-equal;
    its 2 bootstraps eager, "per_op", which drops the bootstrap graphs), one
    request timed by window (it captures the bootstrap graphs again, then
-   replays both) and one profiled (the NTT calls in its trace
-   at most those the wrapper and the replayed graphs' records count); (b) on the
+   replays both); the program's profiled request is (e)'s, one graph of the
+   same windows and bootstraps (the segment request is not profiled, to
+   keep the smoke inside its time limit); (b) on the
    same scheme, the standalone bootstrap of uniform(-1, 1) at scale 2^40
-   and nl=2 to level 14 (RMS <= 1e-5), timed (TIMED_REQUESTS), one bootstrap
-   profiled (idle share, kernels, NTT calls of each mode on the device);
+   and nl=2 to level 14 (RMS <= 1e-5), timed (TIMED_REQUESTS_SHORT; NTT
+   calls of each mode counted by the wrapper, which launches every one of
+   an eager bootstrap's);
    then its signature captured as a CUDA graph (warm-up, recording and
-   instantiation seconds, pool bytes), TIMED_REQUESTS replays timed, byte-equal to
+   instantiation seconds, pool bytes), TIMED_REQUESTS_SHORT replays timed, byte-equal to
    the eager output, one replay profiled (idle share, NTT calls);
    (d) the same HEVM loads the program again under the JAX package's 16
    GiB plan (DACAPO_TPU_HBM_BYTES = 2^34): its galois keys pass the key
@@ -117,7 +117,9 @@
    segment path for the galois-key budget (("segment", "key_budget")): RMS,
    2 bootstraps (timed; eager, "key_budget"), every graph replayed, the
    planned key copies, device key bytes within the budget, outputs
-   bit-equal to (c)'s; one request profiled; the next request's bootstrap
+   bit-equal to (c)'s, the NTT calls counted (the wrapper's launches and the
+   replayed graphs' records; the SqueezeNet prefix's profile is the one of
+   an eager native bootstrap through the LRU); the next request's bootstrap
    signature keeps its planes across requests (no re-encode at its start),
    and a request allocates no more than where they were encoded again
    (NATIVE_PLAN_REQUEST_PEAK_BYTES);
@@ -133,6 +135,21 @@
    HEVM(jit=True), which holds no secret key, loads ResNet, it loads the
    deep program (its whole-program graph) and serves (e)'s argument blob:
    the same path and counts, the result blob byte-equal to the full VM's;
+   (g) between (b) and (e), the batch part (serve_native_batch), on the same
+   HEVM (its keys and planes; before (d), which puts its keys under a
+   budget): the deep program served in a batch at B = 2 and 4
+   (NATIVE_BATCHES) of inputs drawn from NATIVE_BATCH_SEED, each row first
+   served alone (B=1); for each B precompile_batch(B) (the executor's memory
+   plan of the batch, then the batch graphs) and one timed runBatch, at B =
+   4 one more profiled: every row's RMS <=
+   1e-4 and its
+   output ciphertexts byte-equal to its B=1 request's, 2 x B native
+   bootstraps row by row (each a replay of the signature's graph, or
+   eager for the reason the executor's plan gives), no key made, no plain
+   NTT; seconds a batch and a ciphertext beside the B=1 median, the
+   bootstraps' share, capture seconds and pool bytes, peak device bytes,
+   the idle share, NTT calls on the device; then the NTT at every batch
+   size the part launched, bit-equal to the plain NTT;
 10. the basic phase: the five non-MLP rows of the basic list
     (SobelFilter, HarrisCornerDetection, LinearRegression, Multivariate on
     tpu_n14, PolynomialRegression on tpu_n15, pars/40, the inputs of
@@ -235,7 +252,7 @@
     to level 11; its .hevm and .cst by SHA-256, its signature, 398 keys and
     1,916 diagonals + 56 constants by expected.json's dry plan), its ~35 GB
     of keys kept in memory (HEVM(save_keys=False): the machine takes 45 GiB
-    of writes a run); two timed segment requests, one profiled,
+    of writes a run); one timed segment request, one profiled,
     one per op and one whole-program request (jit=True), the same
     ciphertext each: byte-equal, RMS <= 1e-4, one native bootstrap each
     (replayed, or eager "per_op"), no key made, no plain NTT; then the NTT
@@ -245,9 +262,11 @@
     and write goes through it (its calls are counted and must be nonzero;
     its read time against the Python reader is
     scripts/hevm_read_timing.py's);
-17. prints the kernel table as one JSON line (launches: the profiled
-    ResNet request's, counted on the device; every path's under
-    launches_by_path, and per ciphertext; the batch shapes' times), then
+17. prints the kernel table as one JSON line (launches: the ResNet
+    request's NTT calls, counted as the wrapper's launches plus the
+    replayed graphs' capture records; every path's under launches_by_path,
+    and per ciphertext, each path's source under launches_counted; the
+    batch shapes' times), then
     the card's name and power limit, then {"ok": true, "device": {...}} as
     the last line.
 
@@ -272,6 +291,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -296,15 +316,22 @@ RMS_BAR_NATIVE_BOOT = 1e-5     # the standalone tpu_n15b bootstrap (JAX on the T
 RMS_BAR_NATIVE_DEEP = 1e-4     # the deep DaCapo program on tpu_n15b
 RMS_BAR_BASIC = 2e-5           # the basic rows (JAX on the TPU: 1.05e-7 to 6.49e-6)
 N_TIMED = 25
-# timed requests of the ResNet B=1 and B=4 paths, of the standalone native
-# bootstrap (eager and replayed) and of the deep program's whole-program path
-# (the second replays the same graphs: state carried between requests shows);
-# the deep native VM, its 16 GiB plan and the 10 GiB streaming ResNet VM time
-# one each since the native ResNet phase joined, to keep the run inside its
-# time limit
+# timed requests of the deep program's whole-program path (the second
+# replays the same graphs: state carried between requests shows); every
+# other path times one (TIMED_REQUESTS_SHORT), to keep the run inside its
+# time limit: the deep native VM, its 16 GiB plan and the 10 GiB streaming
+# ResNet VM since the native ResNet phase joined, and since the native batch
+# part the ResNet B=1 and B=4 paths (each also checked byte for byte on
+# another request: the per-op rerun, the streaming VM), the standalone
+# native bootstrap (eager and replayed: byte-equal) and the tpu_n16 segment
+# path (byte-equal to its per-op and whole-program requests)
 TIMED_REQUESTS = 2
 TIMED_REQUESTS_SHORT = 1
 RESNET_BATCH = 4               # ciphertexts a ResNet batch request carries
+# the deep tpu_n15b program's batch part (serve_native_batch): its batch
+# sizes and the seed the rows' inputs come from
+NATIVE_BATCHES = (2, 4)
+NATIVE_BATCH_SEED = 200
 BASIC_BATCH = 8                # and a Multivariate one
 BASIC_BATCH_ROW = "Multivariate"
 # device-memory plans (DACAPO_TPU_HBM_BYTES; vm/executor.py: galois keys
@@ -328,10 +355,21 @@ KEY_BUDGET_FRAC = 0.55         # vm/executor.py HEVMExecutor.KEY_BUDGET_FRAC
 # why a native boot window may run eagerly on the card (vm/executor.py
 # boot_window_plan); any other eager bootstrap fails the run
 EAGER_REASONS = {"per_op", "mesh", "key_budget", "dropped_group"}
+NATIVE_BATCH_PATH = f"native_deep_batch{max(NATIVE_BATCHES)}_tpu_n15b_request"
+
+
+# every logged line also goes, with the seconds since the start, to
+# OUT_DIR/chip_smoke.log (main opens it): the whole run's timeline, longer
+# than what the end of the output keeps
+TIMELINE = dict(t0=time.perf_counter(), file=None)
 
 
 def log(*a):
     print(*a, flush=True)
+    if TIMELINE["file"] is not None:
+        TIMELINE["file"].write(f"[{time.perf_counter() - TIMELINE['t0']:8.1f}] "
+                               + " ".join(map(str, a)) + "\n")
+        TIMELINE["file"].flush()
 
 
 def sh(cmd):
@@ -966,10 +1004,13 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     width and depth: the port traces it (its .cst must equal the JAX
     package's byte for byte), HEVM loads the committed .hevm on the keyset
     the MLP phase wrote (only the missing rotation keys are generated) and
-    captures the graphs, TIMED_REQUESTS timed segmented requests are held to
-    the reference's RMS bar, the last is rerun per-op with the same randomness
-    and must give the same ciphertexts, and two more requests are timed by
-    window and profiled."""
+    captures the graphs, TIMED_REQUESTS_SHORT timed segmented requests are held to
+    the reference's RMS bar, their NTT calls counted (the wrapper's launches
+    outside graphs and the replayed graphs' records), and one more request is
+    timed by window. Since the native batch part its per-op rerun is the
+    streaming phase's (the same oracle draws and argument, held byte for byte
+    to this VM's segment output) and its profile the batch request's (one
+    profiled request a phase)."""
     from dacapo_tpu_torch.crypto.bootstrap import EmulatedBootstrapper
     from dacapo_tpu_torch.ir.serialize import function_digest
     from dacapo_tpu_torch.models import cnn_he, resnet
@@ -1040,15 +1081,15 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         f"{cap['warmup_s']:.3f} s, capture and instantiate {cap['capture_s']:.3f} s; peak "
         f"during load {out['peak_load_bytes']} bytes")
 
-    # TIMED_REQUESTS timed segmented requests; the state of both generators
+    # TIMED_REQUESTS_SHORT timed segmented requests; the state of both generators
     # before the last one (the key generator's, which encrypts the input,
     # and the oracle's on the card) and its outputs are kept for the per-op rerun
     rng = vm.scheme.keygen.rng.bit_generator
     requests = []
-    for i in range(TIMED_REQUESTS):
+    for i in range(TIMED_REQUESTS_SHORT):
         reset_counts(nk, ntt_mod)
         bs.calls = 0
-        replays0 = bs.replays
+        replays0, ntt0 = bs.replays, graph_ntt(ex)
         torch.cuda.reset_peak_memory_stats()
         state = rng.state, bs.gen.get_state()
         t0 = time.perf_counter()
@@ -1057,6 +1098,8 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         res = vm.getOutput()
         torch.cuda.synchronize()
         r = dict(request_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
+                 ntt_launches={k: nk.LAUNCHES[k] + v - ntt0[k]
+                               for k, v in graph_ntt(ex).items()},
                  plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls,
                  oracle_replays=bs.replays - replays0, oracle_graphs=len(bs._graphs),
                  path=list(ex.last_path), peak_bytes=torch.cuda.max_memory_allocated())
@@ -1067,9 +1110,9 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
         log(f"[resnet] request {i} (jit=True: {r['path']}) {r['request_s']:.3f} s: rms "
             f"{r['rms']:.4e} "
             f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps ({r['oracle_replays']} "
-            f"oracle graph replays), NTT launches outside "
-            f"graphs {r['eager_ntt_launches']}, plain NTT calls {r['plain_ntt_calls']}, peak "
-            f"{r['peak_bytes']} bytes allocated")
+            f"oracle graph replays), NTT calls {r['ntt_launches']} (the wrapper's launches "
+            f"outside graphs {r['eager_ntt_launches']} and the replayed graphs' records), plain "
+            f"NTT calls {r['plain_ntt_calls']}, peak {r['peak_bytes']} bytes allocated")
         if logits.shape != (10,) or not np.isfinite(logits).all():
             raise AssertionError(f"bad ResNet output {logits!r}")
         if not r["rms"] <= RMS_BAR_RESNET:
@@ -1084,32 +1127,17 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
                                  "segment path of the oracle bootstrap")
         if any(r["plain_ntt_calls"].values()):
             raise AssertionError(f"the plain NTT ran on the ResNet path: {r}")
-        if i == TIMED_REQUESTS - 1:
+        if i == TIMED_REQUESTS_SHORT - 1:
             kept_state, kept_outs = state, ex._last_outputs[0]
             kept_args = [vm._arg_cts[0]]
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
 
-    # the last timed request again per-op, with both generators restored: the
-    # per-op path replays the same oracle graphs
-    rng.state = kept_state[0]
-    bs.gen.set_state(kept_state[1])
-    vm.jit = False
-    t0 = time.perf_counter()
-    vm.setInput(0, packed)
-    vm.run()
-    vm.getOutput()
-    torch.cuda.synchronize()
-    vm.jit = True
-    out["per_op_request_s"] = time.perf_counter() - t0
-    out["segment_equals_per_op"] = all(
-        torch.equal(a, b) for a, b in zip(ex._last_outputs[0], kept_outs))
-    log(f"[resnet] request median of {TIMED_REQUESTS} (segment) "
-        f"{out['request_median_s']:.3f} s; the "
-        f"last timed request per-op {out['per_op_request_s']:.3f} s, output ciphertexts "
-        f"bit-equal to the segment run: {out['segment_equals_per_op']}")
-    if not out["segment_equals_per_op"]:
-        raise AssertionError("ResNet segment and per-op output ciphertexts differ")
+    log(f"[resnet] request median of {TIMED_REQUESTS_SHORT} (segment) "
+        f"{out['request_median_s']:.3f} s")
+    launches = requests[-1]["ntt_launches"]
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel mode never ran on the ResNet path: {launches}")
 
     # windows by kind: a synchronize after each window
     ex.set_profiling(True)
@@ -1121,38 +1149,6 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
     log(f"[resnet] boot windows (oracle graph replays, a synchronize after each): "
         f"{boot.get('seconds', 0.0):.4f} s for {boot.get('windows', 0)}")
 
-    # the profiled request also times each oracle bootstrap on the host
-    # clock, between synchronizes (input copy, graph replay, output copy)
-    boot_s = []
-    oracle_bootstrap = bs.bootstrap
-
-    def timed_bootstrap(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = oracle_bootstrap(*args)
-        torch.cuda.synchronize()
-        boot_s.append(time.perf_counter() - t0)
-        return res
-
-    def request():
-        boot_s.clear()          # a lossy trace's attempt is profiled again
-        vm.setInput(0, packed)
-        vm.run()
-
-    bs.bootstrap = timed_bootstrap
-    try:
-        prof = out["profiled_request"] = profile_request(torch, request, "resnet", ex, nk,
-                                                         ntt_mod, cpu=False)
-    finally:
-        del bs.bootstrap
-    prof["bootstrap_s"] = boot_s
-    log(f"[resnet] the profiled request's {len(boot_s)} bootstraps: {sum(boot_s):.3f} s "
-        f"(min {min(boot_s):.4f}, max {max(boot_s):.4f} s each)")
-    launches = prof["ntt_launches"]
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel mode never ran on the ResNet path: {launches}")
-    if any(prof["plain_ntt_calls"].values()):
-        raise AssertionError(f"the plain NTT ran on the ResNet path: {prof['plain_ntt_calls']}")
     out["batch"] = resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod,
                                 out["request_median_s"])
     # what the streaming part holds its VM to: the timed request's argument,
@@ -1162,8 +1158,7 @@ def serve_resnet(np, torch, HEVM, nk, ntt_mod, keydir):
                     oracle_graphs=oracle["graphs"], plaintext_bytes=ex.plain_bytes,
                     request_median_s=out["request_median_s"],
                     peak_bytes=max(r["peak_bytes"] for r in requests),
-                    peak_load_bytes=out["peak_load_bytes"],
-                    busy_s=prof["device_busy_s"])
+                    peak_load_bytes=out["peak_load_bytes"])
     return out, launches, resident
 
 
@@ -1171,7 +1166,7 @@ def resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod, single_med
     """The batch part of the ResNet phase, on the same loaded HEVM (keys and
     plaintexts shared): precompile_batch(RESNET_BATCH) captures the batch
     graphs (the oracle's, one per cache key and B, and the segments'), then
-    two timed batch requests (setInputBatch of the test images of seeds
+    one timed batch request (setInputBatch of the test images of seeds
     100.., runBatch, which decrypts) and a profiled one. Every row's RMS
     against the torch model is held to the reference's bar, a request must
     make one batched oracle graph replay per bootstrap and no plain NTT
@@ -1207,7 +1202,7 @@ def resnet_batch(np, torch, vm, model, cnn_he, expected, nk, ntt_mod, single_med
         if not graphs or not out["oracle_graphs"]:
             raise AssertionError("the batch capture made no graph")
         requests = []
-        for i in range(TIMED_REQUESTS):
+        for i in range(TIMED_REQUESTS_SHORT):
             reset_counts(nk, ntt_mod)
             calls0, replays0, oracle_n = bs.calls, bs.replays, len(bs._graphs)
             t0 = time.perf_counter()
@@ -1301,10 +1296,13 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     no LRU upload (no key read outside the arena), the device key bytes
     (arena and LRU) within the key budget; the resident VM's timed request
     (argument and oracle draws restored) must give the same ciphertexts on
-    the segment path and per-op through the LRU; one request is profiled
-    (the staging copies' device time apart), and the decode of every graph
-    window of one request is profiled alone (its device time, NTT and the
-    rest apart). Returns (results, NTT calls of the profiled request, the
+    the segment path and per-op through the LRU (this is also the per-op
+    rerun of the resident VM's request: the per-op path replays the same
+    oracle graphs); the timed request's NTT calls are counted (the
+    wrapper's and the replayed graphs' records), and the decode of every
+    graph window of one request is profiled alone (its device time, NTT and
+    the rest apart: the phase's one profiled request since the native batch
+    part). Returns (results, NTT calls of the timed request, the
     NTT batch sizes the decodes launched)."""
     from dacapo_tpu_torch.models import cnn_he
     expected, want, packed = resident["expected"], resident["want"], resident["packed"]
@@ -1371,7 +1369,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     for i in range(TIMED_REQUESTS_SHORT):
         reset_counts(nk, ntt_mod)
         bs.calls = 0
-        replays0, seg0 = bs.replays, ex.replays
+        replays0, seg0, ntt0 = bs.replays, ex.replays, graph_ntt(ex)
         staged0, uploads0 = dict(ex.key_staging), galois.uploads
         galois.peak_bytes = galois.device_bytes
         torch.cuda.reset_peak_memory_stats()
@@ -1381,6 +1379,8 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         res = vm.getOutput()
         torch.cuda.synchronize()
         r = dict(request_s=time.perf_counter() - t0, eager_ntt_launches=dict(nk.LAUNCHES),
+                 ntt_launches={k: nk.LAUNCHES[k] + v - ntt0[k]
+                               for k, v in graph_ntt(ex).items()},
                  plain_ntt_calls=dict(ntt_mod.CALLS), bootstraps=bs.calls,
                  oracle_replays=bs.replays - replays0, graph_replays=ex.replays - seg0,
                  key_copies={k: ex.key_staging[k] - staged0[k] for k in staged0},
@@ -1393,8 +1393,8 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         log(f"[resnet stream] request {i} (jit=True: {r['path']}) {r['request_s']:.3f} s: rms "
             f"{r['rms']:.4e} "
             f"(bar {RMS_BAR_RESNET}), {r['bootstraps']} bootstraps ({r['oracle_replays']} "
-            f"oracle graph replays), {r['graph_replays']} segment graph replays, NTT launches "
-            f"outside graphs {r['eager_ntt_launches']}, plain NTT calls "
+            f"oracle graph replays), {r['graph_replays']} segment graph replays, NTT calls "
+            f"{r['ntt_launches']} (outside graphs {r['eager_ntt_launches']}), plain NTT calls "
             f"{r['plain_ntt_calls']}, peak {r['peak_bytes']} bytes; keys copied into the arena: "
             f"{kc['host']} from the host ({kc['host_bytes']} bytes), {kc['device']} from the "
             f"LRU ({kc['device_bytes']} bytes); LRU uploads {r['lru_uploads']}; device key "
@@ -1416,8 +1416,8 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         if not r["bootstraps"] == r["oracle_replays"] == expected["bootstraps"]:
             raise AssertionError(f"{r['bootstraps']} bootstraps ran ({r['oracle_replays']} "
                                  f"oracle replays), the program has {expected['bootstraps']}")
-        if any(r["plain_ntt_calls"].values()):
-            raise AssertionError(f"the plain NTT ran on the streaming ResNet path: {r}")
+        if any(r["plain_ntt_calls"].values()) or min(r["ntt_launches"].values()) <= 0:
+            raise AssertionError(f"the NTT kernel did not carry the streaming ResNet path: {r}")
         if ex._captured is not graphs or len(bs._graphs) != out["oracle_graphs"]:
             raise AssertionError("a streaming request captured graphs the load did not")
         if r["path"] != ["segment", "streaming"]:
@@ -1452,23 +1452,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
     # streaming plaintexts it drops the graphs (vm/executor.py _use_path)
     rerun("segment", "auto")
 
-    def request():
-        vm.setInput(0, packed)
-        vm.run()
-
-    prof = out["profiled_request"] = profile_request(torch, request, "resnet stream", ex, nk,
-                                                     ntt_mod, cpu=False)
-    launches = prof["ntt_launches"]
-    if min(launches.values()) <= 0 or any(prof["plain_ntt_calls"].values()):
-        raise AssertionError(f"the profiled streaming request: NTT {launches}, plain "
-                             f"{prof['plain_ntt_calls']}")
-    out["resident_busy_s"] = resident["busy_s"]
-    # the key copies into the arena, from pinned host memory
-    staging = [k for k in prof["by_kernel"] if k["name"].startswith("Memcpy HtoD (Pinned")]
-    out["key_staging_device_s"] = sum(k["device_s"] for k in staging)
-    log(f"[resnet stream] profiled request: idle share {prof['idle_share']}, key copies "
-        f"from pinned host memory {sum(k['count'] for k in staging)} taking "
-        f"{out['key_staging_device_s']:.4f} s of device time")
+    launches = requests[-1]["ntt_launches"]
 
     # the decode of one request alone: every graph window's groups, as the
     # graphs run them
@@ -1492,8 +1476,7 @@ def serve_resnet_streaming(np, torch, HEVM, nk, ntt_mod, keydir, resident):
         raise AssertionError(f"device key bytes {galois.peak_bytes} passed the budget")
     shapes.stop()
     log(f"[resnet stream] median {out['request_median_s']:.3f} s against the resident "
-        f"{resident['request_median_s']:.3f} s; device busy {prof['device_busy_s']:.4f} s "
-        f"against {resident['busy_s']:.4f} s; the decode of one request alone "
+        f"{resident['request_median_s']:.3f} s; the decode of one request alone "
         f"({cap['decode_rows']} rows): {dec['device_busy_s']:.4f} s of device time, NTT "
         f"{dec['ntt_kernel_s']:.4f} s, the rest (gathers, int64 elementwise, orbit order) "
         f"{out['decode']['other_s']:.4f} s; peak {out['peak_bytes']} bytes against the "
@@ -1575,8 +1558,9 @@ def native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params):
 def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     """(c) HEVM("tpu_n15b") serves the committed deep DaCapo program with
     native bootstraps, then (b) the standalone bootstrap on the same scheme.
-    Returns (results, the NTT calls of the profiled request on the device,
-    those of the profiled standalone bootstrap)."""
+    Returns (results, the NTT calls of the timed request (the wrapper's and
+    the replayed graphs' records), those of the eager standalone bootstrap
+    (the wrapper's) and of its profiled replay)."""
     from types import SimpleNamespace
     from dacapo_tpu_torch.crypto.bootstrap_native import NativeBootstrapper, native_radix
     from dacapo_tpu_torch.crypto.scheme import Ciphertext
@@ -1718,38 +1702,10 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     if ex.last_bootstraps != dict(replayed=expected["bootstraps"], eager={}):
         raise AssertionError(f"after the per-op request: {ex.last_bootstraps}")
 
-    boot_s = []
-    native = bs.bootstrap
-
-    def timed_bootstrap(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = native(*args)
-        torch.cuda.synchronize()
-        boot_s.append(time.perf_counter() - t0)
-        return res
-
-    def request():
-        boot_s.clear()          # a lossy trace's attempt is profiled again
-        vm.setInput(0, x)
-        vm.run()
-
-    bs.bootstrap = timed_bootstrap
-    try:
-        prof = out["profiled_request"] = profile_request(torch, request, "native", ex, nk,
-                                                         ntt_mod, cpu=False,
-                                                         trace_loss_ok=True)
-    finally:
-        del bs.bootstrap
-    prof["bootstrap_s"] = boot_s
-    # the NTT calls as the native ResNet phase counts them, without a trace
-    # (profile_request's ntt_counted, which the trace may not pass)
-    log(f"[native] NTT calls counted by the wrapper and the graphs' records "
-        f"{prof['ntt_counted']}, in the trace {prof['ntt_launches']}")
-    req_launches = prof["ntt_launches"]
-    if min(req_launches.values()) <= 0 or any(prof["plain_ntt_calls"].values()):
-        raise AssertionError(f"the profiled deep request: NTT {req_launches}, plain "
-                             f"{prof['plain_ntt_calls']}")
+    # the request's NTT calls: counted on the timed request (the wrapper's
+    # and the replayed graphs' records); the whole-program request (e) is the
+    # deep program's profiled one
+    req_launches = requests[-1]["ntt_launches"]
 
     # (b) the standalone bootstrap on the same scheme
     torch.cuda.reset_peak_memory_stats()
@@ -1758,22 +1714,22 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
     ct = s.encrypt(vals, scale=2.0 ** s.ctx.config.scale_bits, nl=2)
     sb = out["standalone"] = {}
     times = []
-    for i in range(1 + TIMED_REQUESTS):
+    for i in range(1 + TIMED_REQUESTS_SHORT):
         torch.cuda.synchronize()
+        reset_counts(nk, ntt_mod)
         t0 = time.perf_counter()
         data, (nl2, scale) = bs.bootstrap(ct.data, 2, ct.scale, 14)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    # eager: the wrapper launched every NTT call (the last timed run's)
+    boot_launches, boot_plain = dict(nk.LAUNCHES), dict(ntt_mod.CALLS)
     sb["first_call_s"], sb["seconds"] = times[0], times[1:]
     sb["median_s"] = statistics.median(times[1:])
     err = s.decrypt(Ciphertext(data, scale)) - vals
     sb.update(level=nl2 // s.ctx.config.rescale_rows - 1, rows=nl2,
               rms=float(np.sqrt(np.mean(err * err))), max_abs_err=float(np.abs(err).max()))
-    prof_b = sb["profiled"] = profile_request(
-        torch, lambda: bs.bootstrap(ct.data, 2, ct.scale, 14), "native bootstrap",
-        SimpleNamespace(replays=0), nk, ntt_mod, cpu=False, trace_loss_ok=True)
-    boot_launches = prof_b["ntt_launches"]
-    sb.update(rotation_keys=len(bs.rotation_steps()), conjugation_key=keys.conj is not None,
+    sb.update(ntt_launches=boot_launches, plain_ntt_calls=boot_plain,
+              rotation_keys=len(bs.rotation_steps()), conjugation_key=keys.conj is not None,
               peak_bytes=torch.cuda.max_memory_allocated())
     # the same signature as a CUDA graph: capture, replays, one profiled
     reserved = torch.cuda.memory_reserved()
@@ -1785,7 +1741,7 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
                             **{k: rec[k] for k in ("warmup_s", "capture_s", "instantiate_s",
                                                    "pool_bytes", "ntt")})
     replay_s, replays0 = [], bs.replays
-    for i in range(TIMED_REQUESTS):
+    for i in range(TIMED_REQUESTS_SHORT):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rdata, _ = bs.bootstrap(ct.data, 2, ct.scale, 14)
@@ -1804,10 +1760,8 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
         f"{', '.join(f'{t:.3f}' for t in replay_s)} s against eager "
         f"{', '.join(f'{t:.3f}' for t in times[1:])} s; profiled replay: device busy "
         f"{prof_g['device_busy_s']} s of {prof_g['wall_s']:.4f} s (idle share "
-        f"{prof_g['idle_share']}), eager: {prof_b['device_busy_s']} s of "
-        f"{prof_b['wall_s']:.4f} s (idle share {prof_b['idle_share']}); byte-equal to the "
-        f"eager output: {sg['equals_eager']}")
-    if (not sg["equals_eager"] or sg["replays"] != TIMED_REQUESTS
+        f"{prof_g['idle_share']}); byte-equal to the eager output: {sg['equals_eager']}")
+    if (not sg["equals_eager"] or sg["replays"] != TIMED_REQUESTS_SHORT
             or min(prof_g["ntt_launches"].values()) <= 0
             or any(prof_g["plain_ntt_calls"].values())):
         raise AssertionError(f"the standalone bootstrap's graph: {sg}")
@@ -1815,17 +1769,173 @@ def serve_native(np, torch, HEVM, nk, ntt_mod, params, keydir, files):
         f"level {sb['level']}: "
         f"rms {sb['rms']:.4e} (bar {RMS_BAR_NATIVE_BOOT}), max |err| {sb['max_abs_err']:.3e}; "
         f"first call {times[0]:.3f} s, then {', '.join(f'{t:.3f}' for t in times[1:])} s "
-        f"(median {sb['median_s']:.3f}); NTT calls on the device {boot_launches}, device "
-        f"kernels {prof_b['device_ops']}, idle share {prof_b['idle_share']}; "
+        f"(median {sb['median_s']:.3f}); NTT calls (eager: the wrapper's) {boot_launches}; "
         f"{sb['rotation_keys']} rotation keys + conjugation key; peak {sb['peak_bytes']} bytes")
     if sb["level"] != 14 or not sb["rms"] <= RMS_BAR_NATIVE_BOOT:
         raise AssertionError(f"standalone bootstrap: level {sb['level']}, rms {sb['rms']}")
-    if min(boot_launches.values()) <= 0 or any(prof_b["plain_ntt_calls"].values()):
+    if min(boot_launches.values()) <= 0 or any(boot_plain.values()):
         raise AssertionError(f"the standalone bootstrap: NTT {boot_launches}, plain "
-                             f"{prof_b['plain_ntt_calls']}")
+                             f"{boot_plain}")
     out["peak_bytes"] = max([out["peak_load_bytes"], sb["peak_bytes"]]
                             + [r["peak_bytes"] for r in requests])
     return out, req_launches, (boot_launches, prof_g["ntt_launches"]), kept
+
+
+def serve_native_batch(np, torch, nk, ntt_mod, params, resident, batches=NATIVE_BATCHES):
+    """(g) the batch part: the deep program served in a batch on the native
+    phase's resident HEVM("tpu_n15b") (its keys and planes; no keyset made
+    again) after (c) and (b). max(batches) input vectors drawn from
+    NATIVE_BATCH_SEED are encrypted once (setInputBatch); each row is first
+    served alone (a segment request, B=1); then for each B of `batches`
+    precompile_batch(B) (the memory plan of the batch first, then the batch
+    graphs) and one timed runBatch of the first B rows; at the largest B one
+    more batch request profiled. Each request: every
+    row's RMS against deep_golden <= RMS_BAR_NATIVE_DEEP, its output
+    ciphertexts byte-equal to its B=1 request's, 2 x B native bootstraps,
+    row by row, each boot window's B rows replays of its signature's graph
+    or eager for the reason the executor's plan gives (boot_plan), no key
+    made, no plain NTT call. Then the NTT at every batch size the part
+    launched (the batch captures and requests, and one eager run of each
+    bootstrap signature: a replay launches what its capture recorded),
+    bit-equal to the plain NTT. The batch state is let go at the end
+    (HEVM.drop_batch), so that the phase's later parts find the VM as (c)
+    left it. Returns (results, the profiled request's
+    NTT calls on the device, the NTT check)."""
+    from dacapo_tpu_torch.models.deep import deep_golden
+    with open(os.path.join(NATIVE_ART, "expected.json")) as f:
+        expected = json.load(f)
+    vm = resident["vm"]
+    ex, keys = vm.executor, vm.scheme.keys
+    bs = ex.bootstrapper
+    nb = max(batches)
+    xs = np.random.default_rng(NATIVE_BATCH_SEED).uniform(
+        *expected["input_range"], (nb, vm.scheme.ctx.config.n_slots))
+    wants = [deep_golden(x, expected["depth"]) for x in xs]
+    keys0 = (len(keys.galois), keys.conj)
+    out = dict(batches=list(batches), rows=nb, input_seed=NATIVE_BATCH_SEED,
+               single_request_median_s=resident["request_median_s"])
+    vm.setInputBatch(0, xs)
+    data, nl, scale = vm._arg_cts_batch[0]
+    singles, single_s = [], []
+    for b in range(nb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, _ = ex.run_encrypted([(data[b], nl, scale)])
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+        singles.append([o.clone() for o in outs])
+    out["single_s"] = single_s
+    plan = ex.boot_plan()
+    boot_s = []
+    native = bs.bootstrap
+
+    def timed_bootstrap(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = native(*args)
+        torch.cuda.synchronize()
+        boot_s.append(time.perf_counter() - t0)
+        return res
+
+    shapes = NttShapes()
+    shapes.start()
+    requests = {}
+    try:
+        for nbatch in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            graphs = vm.precompile_batch(nbatch)
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            cap, bplan = dict(ex.batch_capture_stats or {}), ex.plan_batch(nbatch) or {}
+            if vm.device.type == "cuda" and not (graphs and bplan and cap["batch"] == nbatch):
+                raise AssertionError(f"precompile_batch({nbatch}) planned {bplan} and "
+                                     f"captured {graphs} graphs ({cap})")
+            vm._arg_cts_batch[0] = (data[:nbatch], nl, scale)
+            batch_boots = ex.boot_plan(batch=nbatch)       # under the batch's plane bound
+            want_boots = dict(replayed=nbatch * sum(why is None for *_, why in batch_boots),
+                              eager={})
+            for *_, why in batch_boots:
+                if why is not None:
+                    want_boots["eager"][why] = want_boots["eager"].get(why, 0) + nbatch
+            reset_counts(nk, ntt_mod)
+            calls0, ntt0 = bs.calls, graph_ntt(ex)
+            boot_s.clear()
+            bs.bootstrap = timed_bootstrap
+            try:
+                t0 = time.perf_counter()
+                res = vm.runBatch()
+                torch.cuda.synchronize()
+                batch_s = time.perf_counter() - t0
+            finally:
+                del bs.bootstrap
+            r = requests[nbatch] = dict(
+                batch_s=batch_s, bootstrap_s=list(boot_s), bootstraps_total_s=sum(boot_s),
+                bootstrap_share=sum(boot_s) / batch_s, graphs=graphs, capture_s=capture_s,
+                capture=cap, plan=bplan, bootstraps=bs.calls - calls0, boots=ex.last_bootstraps,
+                ntt_launches={k: nk.LAUNCHES[k] + v - ntt0[k] for k, v in graph_ntt(ex).items()},
+                eager_ntt_launches=dict(nk.LAUNCHES), plain_ntt_calls=dict(ntt_mod.CALLS),
+                keys_made=(len(keys.galois), keys.conj) != keys0,
+                peak_bytes=torch.cuda.max_memory_allocated())
+            r["per_ciphertext_s"] = r["batch_s"] / nbatch
+            r["rms"] = [float(np.sqrt(np.mean((res[b][0] - wants[b]) ** 2)))
+                        for b in range(nbatch)]
+            r["rows_equal_single"] = [
+                all(torch.equal(o[b], s) for o, s in zip(ex._last_outputs[0], singles[b]))
+                for b in range(nbatch)]
+            log(f"[native batch] B={nbatch}: plan {bplan}; captured {graphs} graphs in "
+                f"{capture_s:.3f} s (pool {cap.get('pool_bytes')} bytes); runBatch "
+                f"{r['batch_s']:.3f} s, {r['per_ciphertext_s']:.3f} s a ciphertext (B=1 "
+                f"{resident['request_median_s']:.3f} s), its {len(boot_s)} bootstraps "
+                f"{r['bootstraps_total_s']:.3f} s (share {r['bootstrap_share']:.3f}, a "
+                f"synchronize around each); rms per row "
+                + ", ".join(f"{v:.4e}" for v in r["rms"])
+                + f" (bar {RMS_BAR_NATIVE_DEEP}); rows byte-equal to their B=1 requests "
+                f"{r['rows_equal_single']}; {r['bootstraps']} native bootstraps {r['boots']}; "
+                f"NTT calls {r['ntt_launches']} (outside graphs {r['eager_ntt_launches']}), "
+                f"plain {r['plain_ntt_calls']}; keys made {r['keys_made']}; peak "
+                f"{r['peak_bytes']} bytes")
+            if res.shape[0] != nbatch or not np.isfinite(res).all():
+                raise AssertionError(f"bad output of the deep program's batch of {nbatch}")
+            if not max(r["rms"]) <= RMS_BAR_NATIVE_DEEP or not all(r["rows_equal_single"]):
+                raise AssertionError(f"the deep program's batch of {nbatch}: rms {r['rms']}, "
+                                     f"rows equal to single requests {r['rows_equal_single']}")
+            if (r["bootstraps"] != expected["bootstraps"] * nbatch or r["boots"] != want_boots
+                    or set(r["boots"]["eager"]) - EAGER_REASONS):
+                raise AssertionError(f"the deep program's batch of {nbatch}: bootstraps "
+                                     f"{r['bootstraps']} {r['boots']}, planned {want_boots}")
+            if (r["keys_made"] or any(r["plain_ntt_calls"].values())
+                    or min(r["ntt_launches"].values()) <= 0):
+                raise AssertionError(f"the deep program's batch of {nbatch}: {r}")
+        nbatch = max(batches)
+
+        def request():
+            vm.runBatch()
+
+        prof = out["profiled_request"] = profile_request(
+            torch, request, f"native batch {nbatch}", ex, nk, ntt_mod, cpu=False,
+            trace_loss_ok=True)
+        if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
+            raise AssertionError(f"the profiled batch of {nbatch}: NTT {prof['ntt_launches']}, "
+                                 f"plain {prof['plain_ntt_calls']}")
+        # a replayed bootstrap launches what its capture recorded: its sizes
+        for sig in dict.fromkeys(sig for _, sig, _ in plan):
+            bs.warm(*sig)
+    finally:
+        shapes.stop()
+    out["requests"] = {str(k): v for k, v in requests.items()}
+    log(f"[native batch] profiled B={nbatch}: wall {prof['wall_s']:.3f} s, device busy "
+        f"{prof['device_busy_s']} s (idle share {prof['idle_share']}), NTT calls on the device "
+        f"{prof['ntt_launches']} (counted {prof['ntt_counted']}), "
+        f"{prof['ntt_launches']['ntt_fwd_cuda'] / nbatch:.1f} forward a ciphertext")
+    vm.drop_batch()
+    del res, data, singles
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n15b", sorted(shapes.sizes),
+                                "native batch")
+    return out, prof["ntt_launches"], check
 
 
 def serve_native_whole(np, torch, nk, ntt_mod, files, resident):
@@ -1993,9 +2103,9 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     (run_encrypted): RMS, 2 native bootstraps, every graph window
     replayed, the planned key copies, device key bytes within the budget,
     the request's peak within NATIVE_PLAN_REQUEST_PEAK_BYTES, outputs
-    bit-equal to the resident executor's; the bootstraps are timed; one
-    request profiled. Returns (results, the NTT calls of the profiled
-    request on the device)."""
+    bit-equal to the resident executor's; the bootstraps are timed; the
+    NTT calls counted (the wrapper's launches and the replayed graphs'
+    records). Returns (results, the NTT calls of the timed request)."""
     out = dict(hbm_bytes=NATIVE_PLAN_BYTES)
     vm = resident["vm"]
     torch.cuda.synchronize()
@@ -2042,7 +2152,7 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     try:
         for i, (args, want_outs) in enumerate(resident["requests"]):
             reset_counts(nk, ntt_mod)
-            calls0, replays0 = bs.calls, ex.replays
+            calls0, replays0, ntt0 = bs.calls, ex.replays, graph_ntt(ex)
             staged0, uploads0 = dict(ex.key_staging), galois.uploads
             galois.peak_bytes = galois.device_bytes
             boot_s.clear()
@@ -2053,7 +2163,9 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
             r = dict(request_s=time.perf_counter() - t0, bootstrap_s=list(boot_s),
                      path=list(ex.last_path),
                      bootstraps=bs.calls - calls0, graph_replays=ex.replays - replays0,
-                     ntt_launches=dict(nk.LAUNCHES), plain_ntt_calls=dict(ntt_mod.CALLS),
+                     ntt_launches={k: nk.LAUNCHES[k] + v - ntt0[k]
+                                   for k, v in graph_ntt(ex).items()},
+                     plain_ntt_calls=dict(ntt_mod.CALLS),
                      key_copies={k: ex.key_staging[k] - staged0[k] for k in staged0},
                      lru_uploads=galois.uploads - uploads0,
                      lru_upload_bytes=(galois.uploads - uploads0) * vm.scheme.galois_key_bytes(),
@@ -2096,22 +2208,9 @@ def serve_native_budget(np, torch, nk, ntt_mod, files, resident):
     out["requests"] = requests
     out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
     out["bootstrap_median_s"] = statistics.median(t for r in requests for t in r["bootstrap_s"])
-    args = resident["requests"][0][0]
-    prof = out["profiled_request"] = profile_request(
-        torch, lambda: ex.run_encrypted([args], jit=True), "native budget", ex, nk, ntt_mod,
-        cpu=False,
-        trace_loss_ok=True)
-    staging = [k for k in prof["by_kernel"] if k["name"].startswith("Memcpy HtoD (Pinned")]
-    out["key_upload_device_s"] = sum(k["device_s"] for k in staging)
     log(f"[native budget] median {out['request_median_s']:.3f} s, bootstrap median "
-        f"{out['bootstrap_median_s']:.3f} s; profiled request: idle share "
-        f"{prof['idle_share']}, key uploads from pinned host memory "
-        f"{sum(k['count'] for k in staging)} taking {out['key_upload_device_s']:.4f} s of "
-        "device time")
-    if min(prof["ntt_launches"].values()) <= 0 or any(prof["plain_ntt_calls"].values()):
-        raise AssertionError(f"the profiled deep request under the budget: NTT "
-                             f"{prof['ntt_launches']}, plain {prof['plain_ntt_calls']}")
-    return out, prof["ntt_launches"]
+        f"{out['bootstrap_median_s']:.3f} s")
+    return out, requests[-1]["ntt_launches"]
 
 
 def release_host_cache(torch):
@@ -2879,7 +2978,7 @@ def serve_native_n16(np, torch, HEVM, nk, ntt_mod, params, keydir):
     SHA-256): the load makes the ~400 galois keys and the planes in its
     warm-up, keeps the keys in memory (save_keys=False: nothing on disk) and
     captures the segment graphs and the bootstrap's graph. Then
-    TIMED_REQUESTS timed segment requests, one profiled (NTT calls of each
+    TIMED_REQUESTS_SHORT timed segment requests, one profiled (NTT calls of each
     mode on the device), the same request per op (jit=False) and on the
     whole-program path (jit=True: one CUDA graph with the bootstrap inline,
     captured as HEVM(jit=True).load does; ("whole", None)), each of these
@@ -3018,7 +3117,7 @@ def serve_native_n16(np, torch, HEVM, nk, ntt_mod, params, keydir):
         n_boot = expected["bootstraps"]
         replayed = dict(replayed=n_boot, eager={})
         requests = out["requests"] = [request(f"segment {i}", ["segment", None], replayed)
-                                      for i in range(TIMED_REQUESTS)]
+                                      for i in range(TIMED_REQUESTS_SHORT)]
         out["request_median_s"] = statistics.median(r["request_s"] for r in requests)
 
         def profiled():
@@ -3055,7 +3154,7 @@ def serve_native_n16(np, torch, HEVM, nk, ntt_mod, params, keydir):
         vm.jit = "auto"
     out["peak_bytes"] = max([out["peak_load_bytes"]] + [r["peak_bytes"] for r in requests]
                             + [out["per_op"]["peak_bytes"], out["whole"]["peak_bytes"]])
-    log(f"[native n16] segment median of {TIMED_REQUESTS} {out['request_median_s']:.3f} s, "
+    log(f"[native n16] segment median of {TIMED_REQUESTS_SHORT} {out['request_median_s']:.3f} s, "
         f"per op {out['per_op']['request_s']:.3f} s, whole program "
         f"{out['whole']['request_s']:.3f} s; the three byte-equal; profiled: device busy "
         f"{prof['device_busy_s']} s of {prof['wall_s']:.4f} s (idle share "
@@ -3422,9 +3521,10 @@ def serve_squeezenet_native(np, torch, HEVM, nk, ntt_mod, params, keydir, prefix
     torch.cuda.empty_cache()
     out["host_cache_released"] = release_host_cache(torch)
     shutil.rmtree(SQUEEZENET_TRACE)
-    # the card is empty again: the plain NTT is timed at the largest size too
+    # the card is empty again: the whole network times the plain NTT at the
+    # largest size too (the prefix does not: ~6 s of the smoke's time limit)
     check = batch_kernel_checks(torch, params, ntt_mod, nk, "tpu_n15b", sorted(shapes.sizes),
-                                tag[1:-1], plain_up_to=None)
+                                tag[1:-1], plain_up_to=480 if prefix else None)
     return out, requests["segment"]["ntt_launches"], check
 
 
@@ -3439,6 +3539,7 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     os.makedirs(OUT_DIR, exist_ok=True)       # the profile phase writes its table there
+    TIMELINE["file"] = open(os.path.join(OUT_DIR, "chip_smoke.log"), "w")
     from dacapo_tpu_torch import HEVM
     from dacapo_tpu_torch.crypto import ntt as ntt_mod, params
     from dacapo_tpu_torch.crypto.bootstrap_native import BootstrapConfig
@@ -3451,17 +3552,30 @@ def main():
     log(f"[env] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"nvcc: {nvcc[-1] if nvcc else 'unavailable'} | python {sys.version.split()[0]}")
 
+    from dacapo_tpu_torch.vm import native as hevm_core
     t0 = time.perf_counter()
+    # the two sources compile at once: g++ for the native core on a thread,
+    # nvcc for the kernel here
+    core_built = {}
+
+    def build_core():
+        try:
+            hevm_core.build()
+            core_built["s"] = time.perf_counter() - t0
+        except BaseException as e:      # raised again below, on the main thread
+            core_built["error"] = e
+
+    core_thread = threading.Thread(target=build_core)
+    core_thread.start()
     nk.build()
     log(f"[build] ntt.cu: {time.perf_counter() - t0:.2f} s -> {nk.BUILD_INFO['library']}")
     for line in nk.BUILD_INFO.get("nvcc_output", "").splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"[build] {line.strip()}")
-
-    from dacapo_tpu_torch.vm import native as hevm_core
-    t1 = time.perf_counter()
-    hevm_core.build()
-    log(f"[build] hevm_core.cpp: {time.perf_counter() - t1:.2f} s -> "
+    core_thread.join()
+    if "error" in core_built:
+        raise core_built["error"]
+    log(f"[build] hevm_core.cpp: {core_built['s']:.2f} s (beside nvcc) -> "
         f"{hevm_core.BUILD_INFO['library']}")
     seconds = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
@@ -3484,7 +3598,9 @@ def main():
         return out
 
     # the programs the MLP and native phases serve, compiled by the port, and
-    # the basic phase's work (removed at exit by the finalizer)
+    # the basic phase's work: removed before the last lines (the script ends
+    # by os._exit, which runs no finalizer), and by its finalizer if a phase
+    # fails
     work = tempfile.TemporaryDirectory(prefix="hevm_smoke_")
     files, report["compile"] = timed("compile", compile_programs,
                                      os.path.join(work.name, "compiled"))
@@ -3514,6 +3630,7 @@ def main():
         log(f"[time]   {name}: {part_seconds[name]:.1f} s")
 
     deep_whole = {}         # what the native ResNet phase's server serves first
+    native_batch_check = [None]     # the NTT at the native batch part's sizes
 
     def native(kd):
         out = dict(test_boot=native_test_boot(np, Scheme, Ciphertext, BootstrapConfig, params))
@@ -3521,6 +3638,9 @@ def main():
             (by_path["native_bootstrap_tpu_n15b"], by_path["native_bootstrap_graph_tpu_n15b"]), \
             kept = serve_native(np, torch, HEVM, nk, ntt_mod, params, kd, files)
         lap("native_segment")
+        out["tpu_n15b_batch"], by_path[NATIVE_BATCH_PATH], native_batch_check[0] = \
+            serve_native_batch(np, torch, nk, ntt_mod, params, kept)
+        lap("native_batch")
         out["tpu_n15b_whole"], by_path["native_deep_whole_tpu_n15b_request"], blobs = \
             serve_native_whole(np, torch, nk, ntt_mod, files, kept)
         lap("native_whole")
@@ -3559,12 +3679,16 @@ def main():
         f"{BASIC_BATCH_ROW}_decode_tpu_n14": batch_kernel_checks(
             torch, params, ntt_mod, nk, "tpu_n14",
             basic_batch_out["streamed"]["decode_ntt_sizes"], f"{BASIC_BATCH_ROW} decode")})
+    report["ntt_batch"]["native_batch_tpu_n15b"] = native_batch_check[0]
     report["profile"], by_path["profile_tpu_n14"] = timed(
         "profile", profile_ops, torch, nk, ntt_mod)
-    report["resnet_native"], by_path["resnet_native_tpu_n15b_server_request"], \
-        report["ntt_batch"]["resnet_native_tpu_n15b"] = timed(
-            "resnet_native", serve_resnet_native, np, torch, HEVM, nk, ntt_mod, params,
-            keys_n15b.name, work.name, (deep_whole["files"], deep_whole["blobs"]))
+    # the native ResNet phase's two keyset halves (~27 GB, the client's with
+    # the secret key) go with the phase
+    with tempfile.TemporaryDirectory(prefix="hevm_resnet_n15b_") as halves:
+        report["resnet_native"], by_path["resnet_native_tpu_n15b_server_request"], \
+            report["ntt_batch"]["resnet_native_tpu_n15b"] = timed(
+                "resnet_native", serve_resnet_native, np, torch, HEVM, nk, ntt_mod, params,
+                keys_n15b.name, halves, (deep_whole["files"], deep_whole["blobs"]))
     keys_n15b.cleanup()
     # SqueezeNet's prefix on tpu_n15b, every earlier VM freed, under the
     # memory plan that streams its keys from pinned host memory (the whole
@@ -3581,10 +3705,14 @@ def main():
             report["ntt_batch"]["native_tpu_n16"] = timed(
                 "native_n16", serve_native_n16, np, torch, HEVM, nk, ntt_mod, params, keys_n16)
     report["native_core"] = native_core(hevm_core)
+    t0 = time.perf_counter()
+    work.cleanup()
+    seconds["cleanup"] = time.perf_counter() - t0
     log("[time] phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     log("[time] parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in part_seconds.items()))
 
     per_ct = {f"resnet_tpu_n15_batch{RESNET_BATCH}_request": RESNET_BATCH,
+              NATIVE_BATCH_PATH: max(NATIVE_BATCHES),
               f"basic_{BASIC_BATCH_ROW}_batch{BASIC_BATCH}_request": BASIC_BATCH,
               f"basic_{BASIC_BATCH_ROW}_streamed_batch{BASIC_BATCH}_request": BASIC_BATCH,
               f"basic_{BASIC_BATCH_ROW}_mesh_batch{BASIC_BATCH}_request": BASIC_BATCH}
@@ -3607,13 +3735,20 @@ def main():
             ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape="B=112, N=2^15 (ModUp batch at tpu_n15)",
-            launches_counted=("NTT calls the device ran in one profiled request of each "
-                              "path (ntt_pass kernels in the trace, graph replays "
-                              "included; the basic path: the five rows' server requests "
-                              "summed); tpu_n16 and the profile phase (no graphs): the "
-                              "wrapper's count; the native ResNet and SqueezeNet requests: "
-                              "the wrapper's launches plus the replayed graphs' capture "
-                              "records"),
+            launches_counted=("NTT calls of one request of each path. Counted (the "
+                              "wrapper's launches outside graphs plus what each replayed "
+                              "graph recorded at capture): the ResNet request (the "
+                              "headline launches), its streaming request, the deep "
+                              "segment and 16 GiB-plan requests, the native ResNet "
+                              "request and the SqueezeNet prefix's first request; the "
+                              "wrapper's count alone (no graphs): tpu_n16, the profile "
+                              "phase and the eager standalone bootstrap. On the device "
+                              "(ntt_pass kernels in a profiled request's trace, graph "
+                              "replays included): the MLP, the replayed standalone "
+                              "bootstrap, the batches (ResNet B=4, the deep program's "
+                              "largest B, Multivariate B=8 resident, streamed and over "
+                              "the mesh), the deep whole-program request, the basic rows' "
+                              "server requests (the five summed) and native_n16"),
             launches_by_path={k: v[name] for k, v in by_path.items()},
             launches_per_ciphertext={k: v[name] / per_ct.get(k, 1) for k, v in by_path.items()},
             batch_shapes=batch_shapes,
@@ -3631,4 +3766,11 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # the process's end gives back the card and the host memory the run
+    # holds (tens of GB of pinned key slabs, the caching allocators' blocks);
+    # the interpreter's own teardown would first free them one by one, for
+    # seconds that the run's time limit counts
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -951,6 +951,22 @@ class NativeBootstrapper:
         self._leave(sig, after, [key for key in after if key not in before])
         return out
 
+    def bootstrap_rows(self, data, nl, scale, target_level):
+        """A boot window of a batch, int32 [B, 2, >=nl, N]: each row
+        through `bootstrap` (on the card the replay of the signature's graph
+        where there is one), the rows stacked: (data' [B, ...], (nl',
+        scale')). The B bootstraps take one place of the planned sequence,
+        the place of the request's bootstrap they repeat: each row starts
+        where the first did, so the plane bound plans a batch as it plans a
+        single request (without this the second row would look for the
+        signature's next use in the sequence and move the request there)."""
+        pos = self._pos
+        rows = []
+        for b in range(data.shape[0]):
+            self._pos = pos
+            rows.append(self.bootstrap(data[b], nl, scale, target_level))
+        return torch.stack([out for out, _ in rows]), rows[0][1]
+
     def count_replay(self, nl, scale, ntt):
         """The host bookkeeping of one bootstrap of signature (nl, scale)
         that ran inside another CUDA graph (the executor's whole-program

@@ -376,18 +376,27 @@ class HEVM:
         ["batch_capture"] get their seconds. A later batch of another size
         captures its own at first use. mesh: the batch's mesh (runBatch);
         the oracle's graphs then take all `batch` rows and the segments'
-        this rank's block of them. Returns the number of segment graphs (0
-        on the CPU, which runs the batch eagerly, and with jit=False)."""
+        this rank's block of them. Where the native bootstrap's planes are
+        bounded, the executor's memory plan of the batch (plan_batch) comes
+        first, from the single request's registers and graph pool, and
+        raises BatchTooLarge before any capture where the batch cannot be
+        held, and again after it where the measured pool cannot (drop_batch
+        lets go of what the capture holds). A native bootstrap has no batch graph: each
+        row replays the single request's graph of its signature, and no
+        key is made here. Returns the number of segment graphs (0 on the
+        CPU, which runs the batch eagerly, and with jit=False)."""
         if self.executor is None:
             raise RuntimeError("load a program first")
-        if self.device.type != "cuda" or self.jit is False:
-            return 0
         rows = batch
         if mesh is not None:
             from ..parallel.mesh import batch_rows
-            self.executor.use_mesh(mesh)
             block = batch_rows(mesh, batch)
             rows = block.stop - block.start
+        self.executor.plan_batch(rows)
+        if self.device.type != "cuda" or self.jit is False:
+            return 0
+        if mesh is not None:
+            self.executor.use_mesh(mesh)
         t0 = time.perf_counter()
         if self.executor.capture_oracle(batch):
             torch.cuda.synchronize(self.device)
@@ -396,7 +405,18 @@ class HEVM:
         graphs = self.executor.precompile_segments(batch=rows)
         torch.cuda.synchronize(self.device)
         self.load_seconds["batch_capture"] = time.perf_counter() - t0
+        self.executor.plan_batch(rows)
         return graphs
+
+    def drop_batch(self):
+        """Let go of what batch requests left: the executor's batch graphs
+        and plan (HEVMExecutor.drop_batch), the batch's arguments
+        (setInputBatch) and the last outputs. The loaded program, its keys
+        and the single request's graphs stay."""
+        if self.executor is not None:
+            self.executor.drop_batch()
+        self._arg_cts_batch.clear()
+        self._out = None
 
     def loadClient(self, hevm_path):
         """Client mode: the program's header only (each argument's level and

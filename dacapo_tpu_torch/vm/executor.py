@@ -26,7 +26,8 @@ Port of dacapo_tpu/vm/executor.py, its paths:
   cached apart from the single-request graphs. A boot window refreshes the
   batch: the oracle with `bootstrap_batch` (on the card one graph per cache
   key and B, `capture_oracle(batch=B)`), the native bootstrap row by row,
-  eagerly, as the reference does.
+  as the reference does, each row a replay of the single request's graph
+  of its signature where the plan pins one.
 * the batch path over a mesh (`run_encrypted_batch(mesh=...)`, the
   reference's shardings of parallel/mesh.py, here on torch.distributed):
   every rank is given the whole batch and keeps its contiguous block of
@@ -122,7 +123,15 @@ the plaintexts leave of their budgets, less the plaintext LRU's share on the
 request's path (`path_budgets`: its whole budget per op, the eager windows'
 plaintexts on the segment path), planned over the request's bootstrap order
 (`_plan_bootstrap_planes`, `_use_path`), and a dropped plane is encoded
-again at its next use.
+again at its next use. A batch request of B holds more than a single one
+beside those: its registers and its batch graphs' pool, B times the single
+request's before the batch graphs are captured (`register_bytes`, the
+segment graphs' `capture_stats["pool_bytes"]`), the measured pool after
+(`batch_capture_stats`). Its plane bound is the segment path's less those
+bytes (`plan_batch`), and a batch that needs more than the segment path's
+planes cannot be held: `BatchTooLarge`, raised by `precompile_batch` before
+any capture and by a batch request before its first window. Nothing else
+gives way to a batch. `drop_batch` lets go of the batch path's state.
 
 The native bootstrap's CUDA graphs (the JAX package compiles each of its
 ops once per shape, crypto/ops.py `_jit`): on the card a segment request
@@ -139,7 +148,9 @@ store's LRU), "dropped_group" (under the plane bound the signature's planes
 cannot stay pinned beside the others': NativeBootstrapper.graph_plan), or on
 the CPU "cpu". `last_bootstraps` holds the last request's count of each; a
 planned replay that does not happen raises. The batch path replays the same
-single-ciphertext graph row by row.
+single-ciphertext graph row by row (NativeBootstrapper.bootstrap_rows), and
+plans which signatures stay pinned under the batch's own plane bound
+(`boot_plan(batch=B)`).
 
 Runtime metadata ((nl, scale) per register) is tracked on the host like SEAL
 tracks ciphertext.scale()/levels, including the reference's scale-forcing
@@ -292,6 +303,28 @@ def check_bootstrap_reach(program, bs, rescale_rows):
             f"whose levelUpperBound and bootstrapLevelUpperBound are at most {reach}")
 
 
+class BatchTooLarge(MemoryError):
+    """A batch request that the memory plan cannot hold beside the single
+    request's (HEVMExecutor.plan_batch): `need` bytes against the
+    `room` the native bootstrap's planes have on the segment path."""
+
+    def __init__(self, need, room):
+        super().__init__(f"a batch request holds {need} bytes beside a single request's "
+                         f"(registers and graph pool), more than the {room} bytes the "
+                         "native bootstrap's planes have on the segment path")
+        self.need, self.room = need, room
+
+
+def _pool_bytes(pool):
+    """Device bytes the caching allocator holds for the CUDA graph memory
+    pool `pool` (a graph_pool_handle): the segments it owns. Read from the
+    allocator's snapshot, without the synchronize and emptied cache that a
+    difference of memory_reserved needs: those move where later
+    allocations land, and with them the peak of the next requests."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 def boot_window_plan(windows, verdict, path, key_budget=False, mesh=False):
     """[(window index, signature, None or why it runs eagerly)] of a
     request's native boot windows ([(window index, (rows, scale, target
@@ -329,6 +362,8 @@ class HEVMExecutor:
         self._pt_budget = None
         self._lru_budget = None  # the LRU's bound on this path (None: _pt_budget)
         self._path_budgets = None                    # _plan_bootstrap_planes
+        self.batch_plan = None    # plan_batch: the last batch request's memory plan
+        self.batch_capture_stats = None
         self.plane_bound = True  # False: no bound on the native bootstrap's planes
         self._streaming = False
         self.plain_bytes = self.pool_bytes = 0
@@ -393,6 +428,7 @@ class HEVMExecutor:
         self._pt_cid = [None] * program.num_ptxt     # register -> dedup id
         self._seg_plan = None
         self._boot_win = {}                          # _boot_windows, by argument metadata
+        self._reg_bytes = None                       # register_bytes, once walked
 
     @classmethod
     def plan_only(cls, scheme, program, constants):
@@ -473,17 +509,26 @@ class HEVMExecutor:
                     self._meta_step(op, meta)
         return out
 
-    def boot_plan(self, path="segment", arg_meta=None):
+    def boot_plan(self, path="segment", arg_meta=None, batch=None):
         """[(window index, signature, None or why it runs eagerly)] of the
         native boot windows of a request on `path` (boot_window_plan, module
         docstring): None where the window replays its signature's CUDA
-        graph on the card. Empty without native bootstraps."""
+        graph on the card, under the plane bound of the path (batch=B: of a
+        batch request of B, plan_batch; the bound set now where none is
+        planned). A query: it changes no bound. Empty without native
+        bootstraps."""
         bs = self.bootstrapper
         if not isinstance(bs, NativeBootstrapper):
             return []
         windows = self._boot_windows(arg_meta)
-        return boot_window_plan(windows, bs.graph_plan([sig[:2] for _, sig in windows]), path,
-                                self.s.keys.galois.budget is not None, self._mesh is not None)
+        budget = False
+        if self._path_budgets is not None:
+            budget = (None if not self.plane_bound
+                      else self.plan_batch(batch)["plane_budget"] if batch is not None
+                      else self._path_budgets[path][1])
+        return boot_window_plan(windows, bs.graph_plan([sig[:2] for _, sig in windows], budget),
+                                path, self.s.keys.galois.budget is not None,
+                                self._mesh is not None)
 
     def _plan_bootstrap_planes(self, cid_info, cid_qp):
         """Under a memory limit (_hbm_limit), bound the native
@@ -524,6 +569,59 @@ class HEVMExecutor:
                else dict(per_op=0, segment=0))
         return {path: (b, max(free - b, 0)) for path, b in lru.items()}
 
+    def register_bytes(self):
+        """The most bytes of ciphertext registers a single request holds
+        between two windows of the segment plan (arguments, window outputs
+        a later window reads, the results), by the metadata walk from the
+        compiled arguments, walked once."""
+        if self._reg_bytes is not None:
+            return self._reg_bytes
+        meta = dict(enumerate(self._arg_meta()))
+        live = set(meta)
+        row = 2 * self.s.ctx.n * 4
+        most = sum(meta[r][0] for r in live) * row
+        for info in self._segment_plan():
+            for op in info["ops"]:
+                self._meta_step(op, meta)
+            live = (live | set(info["outs"])) - set(info["dead"])
+            most = max(most, sum(meta[r][0] for r in live) * row)
+        self._reg_bytes = most
+        return most
+
+    def plan_batch(self, batch):
+        """The memory plan of a batch request of `batch` ciphertexts (the
+        module docstring) where the native bootstrapper's planes are
+        bounded (_plan_bootstrap_planes), else None. Beside a single
+        request the batch holds its registers, register_bytes() `batch`
+        times, and its graphs' pool: the batch capture's measured one for
+        this size (batch_capture_stats), before it the single request's
+        segment graphs' (capture_stats["pool_bytes"]; the whole-program
+        graph's where that is all that was captured; 0 on the CPU) `batch`
+        times. Its plane bound is the segment path's less those bytes;
+        raises BatchTooLarge where they pass the segment path's planes. A
+        query: it changes nothing (a batch request keeps the plan it ran
+        under in `batch_plan`)."""
+        if self._path_budgets is None:
+            return None
+        stats = self.capture_stats or {}
+        pool = stats.get("pool_bytes", stats.get("whole", {}).get("pool_bytes", 0))
+        cap = self.batch_capture_stats
+        measured = cap["pool_bytes"] if cap is not None and cap["batch"] == batch else None
+        regs = self.register_bytes()
+        need = batch * regs + (batch * pool if measured is None else measured)
+        lru, planes = self._path_budgets["segment"]
+        if need > planes:
+            raise BatchTooLarge(need, planes)
+        return dict(batch=batch, register_bytes=regs, single_pool_bytes=pool,
+                    batch_pool_bytes=measured, batch_bytes=need, segment_plane_budget=planes,
+                    plane_budget=planes - need, lru_budget=lru)
+
+    def drop_batch(self):
+        """Let go of the batch path's state: the batch graphs (their pool
+        goes back to the allocator), their capture stats and the last batch
+        request's plan. A later batch request captures its graphs again."""
+        self._captured_batch = self.batch_capture_stats = self.batch_plan = None
+
     def eager_plain_bytes(self, cid_info, cid_qp):
         """Device bytes of the decoded planes of every plaintext that the
         segment plan's eager windows (below SEGMENT_MIN_OPS ops) read,
@@ -535,7 +633,7 @@ class HEVMExecutor:
         return self.resident_plain_bytes([cid_info[c] for c in cids],
                                          [cid_qp[c] for c in cids])
 
-    def _use_path(self, path):
+    def _use_path(self, path, batch=None):
         """Before a request on `path` ("per_op" or "segment"): the
         plaintext LRU's bound and the native bootstrapper's plane bound of
         the path (_plan_bootstrap_planes; `plane_bound` False lifts the
@@ -549,7 +647,9 @@ class HEVMExecutor:
         executor too: the per-op path's plaintext LRU may take its whole
         budget, which the memory plan never left to the graphs' pools
         (SqueezeNet on tpu_n15b: 11.7 GB of segment graphs beside a 10.2 GB
-        LRU pass an 80 GB card)."""
+        LRU pass an 80 GB card). batch=B: a batch request on the segment
+        path, whose plane bound leaves room for what the batch holds
+        (plan_batch; raises BatchTooLarge where it cannot be held)."""
         if path == "per_op" and isinstance(self.bootstrapper, NativeBootstrapper):
             self.bootstrapper.drop_graphs()
             self._boot_dep = None
@@ -557,7 +657,11 @@ class HEVMExecutor:
             self._captured = self._captured_batch = None
         if self._path_budgets is None:
             return
-        self._lru_budget, planes = self._path_budgets[path]
+        if batch is None:
+            self._lru_budget, planes = self._path_budgets[path]
+        else:
+            plan = self.batch_plan = self.plan_batch(batch)
+            self._lru_budget, planes = plan["lru_budget"], plan["plane_budget"]
         self._trim_lru()
         self.bootstrapper.set_plane_budget(planes if self.plane_bound else None)
 
@@ -615,8 +719,9 @@ class HEVMExecutor:
         bs = self.bootstrapper
         return len(bs._graphs) if isinstance(bs, NativeBootstrapper) else 0
 
-    def _boot_graphs(self, arg_meta):
-        """Before a segment request: its boot windows' plan (boot_plan) as
+    def _boot_graphs(self, arg_meta, batch=None):
+        """Before a segment request (batch=B: a batch of B, whose rows
+        replay the same graphs): its boot windows' plan (boot_plan) as
         {window index: None (a replay) or why it runs eagerly}. On the card
         the graphs the plan replays are made: captured after the segment
         graphs into their pool (the first time, and again when the keys or
@@ -631,7 +736,7 @@ class HEVMExecutor:
             for nl, sc, target in dict.fromkeys(sig for _, sig in self._boot_windows(arg_meta)):
                 if (nl, sc) not in bs._sig_planes and bs.capture_blocker() is None:
                     bs.warm(nl, sc, target)
-        plan = self.boot_plan("segment", arg_meta)
+        plan = self.boot_plan("segment", arg_meta, batch)
         if self.s.device.type != "cuda":
             return {wi: why or "cpu" for wi, _, why in plan}
         if self._seg_pool is None:
@@ -1440,7 +1545,8 @@ class HEVMExecutor:
             key_slots=0 if arena is None else len(arena["held"]),
             key_arena_bytes=0 if arena is None else arena["data"].nbytes,
             key_copies_planned=0 if arena is None else arena["copies"],
-            key_copies_lru=0 if arena is None else arena["lru_copies"])
+            key_copies_lru=0 if arena is None else arena["lru_copies"],
+            pool_bytes=_pool_bytes(pool))
         if self._streaming:
             stats.update(decode_rows=sum(decode_rows),
                          decode_max_bytes=max(decode_rows, default=0) * n * 4)
@@ -1554,11 +1660,11 @@ class HEVMExecutor:
         signature's graph where the plan says so (_boot_graphs) and raises
         if it does not; `last_bootstraps` counts the replays and the eager
         bootstraps by reason."""
-        self._use_path("segment")
+        self._use_path("segment", batch)
         plan = self._segment_plan()
         arg_meta = [(nl, sc) for _, nl, sc in arg_cts]
         graphs = self._graphs(arg_meta, batch)
-        boot_why = self._boot_graphs(arg_meta)
+        boot_why = self._boot_graphs(arg_meta, batch)
         bs = self.bootstrapper
         counts = self.last_bootstraps = dict(replayed=0, eager={})
         arena = self._key_arena()
@@ -1628,12 +1734,11 @@ class HEVMExecutor:
     def _bootstrap(self, data, nl, sc, target, batch):
         """A boot window: one bootstrap, or one refresh of a batch (the
         oracle's bootstrap_batch; the native bootstrap row by row, as in
-        the reference)."""
+        the reference, NativeBootstrapper.bootstrap_rows)."""
         bs = self.bootstrapper
         if batch is None or isinstance(bs, EmulatedBootstrapper):
             return bs.bootstrap(data, nl, sc, target)
-        rows = [bs.bootstrap(data[b], nl, sc, target) for b in range(batch)]
-        return torch.stack([r[0] for r in rows]), rows[0][1]
+        return bs.bootstrap_rows(data, nl, sc, target)
 
     # --------------------------------------------------------- whole program
     def whole_path(self):

@@ -5,7 +5,7 @@ dacapo_tpu_torch/artifacts/resnet_dacapo40_tpu_n15b), part by part, against
 the executor's plan (vm/executor.py: galois keys past KEY_BUDGET_FRAC and
 plaintexts past PTXT_BUDGET_FRAC of the card's memory stream).
 
-    python3 scripts/native_resnet_plan.py [--hbm BYTES] [--cst PATH] [--json]
+    python3 scripts/native_resnet_plan.py [--hbm BYTES] [--cst PATH] [--batch B,...] [--json]
 
 It makes no key and encodes nothing:
 
@@ -38,7 +38,16 @@ It makes no key and encodes nothing:
 * which boot windows the segment path replays as CUDA graphs under its
   bound (the signatures whose planes stay pinned) and why each of the rest
   runs eagerly, the same under a galois-key budget and per op
-  (boot_graph_plans).
+  (boot_graph_plans);
+* with --batch, for each batch size B a batch request's memory plan
+  (HEVMExecutor.plan_batch, as before the batch graphs are captured): the
+  single request's register
+  bytes by the executor's walk (register_bytes) and its graph pool (the
+  estimate above), B times each; the batch's plane bound,
+  run through the bootstrapper as above with each boot window's B rows
+  bootstrapped row by row (NativeBootstrapper.bootstrap_rows); the boot
+  windows it replays; its device bytes; or the refusal (BatchTooLarge)
+  with the bytes it needs and those it has.
 
 The constants (.cst) decide which plaintexts are payload-identical: --cst
 names the trace, by default traced/resnet_torch/_hecate_ResNet.cst, which
@@ -62,7 +71,8 @@ from dacapo_tpu_torch.crypto.bootstrap_native import (        # noqa: E402
     BootstrapConfig, NativeBootstrapper, native_config, sized_for_secret)
 from dacapo_tpu_torch.crypto.params import PROFILES           # noqa: E402
 from dacapo_tpu_torch.crypto.scheme import Scheme             # noqa: E402
-from dacapo_tpu_torch.vm.executor import HEVMExecutor, boot_window_plan  # noqa: E402
+from dacapo_tpu_torch.vm.executor import (                    # noqa: E402
+    BatchTooLarge, HEVMExecutor, boot_window_plan)
 from dacapo_tpu_torch.vm.hevm import HEVMProgram, OP_BOOTSTRAP  # noqa: E402
 
 ART = os.path.join(REPO, "dacapo_tpu_torch", "artifacts", "resnet_dacapo40_tpu_n15b")
@@ -175,11 +185,12 @@ class _ShapeBootstrapper(NativeBootstrapper):
 
 
 def dry_bootstraps(profile, sigs, bs_config, config=None, budget=None, sequence=None,
-                   bootstrapper=None):
+                   bootstrapper=None, rows=1):
     """Run the native bootstrap (BootstrapConfig bs_config) of each
     signature on shapes alone, under a plane budget planned over `sequence`
     (NativeBootstrapper.set_plane_budget) when `budget` or `sequence` is
-    given. Returns (NativeBootstrapper.cached_planes() after each
+    given; rows > 1: each signature as the boot window of a batch of `rows`
+    (bootstrap_rows). Returns (NativeBootstrapper.cached_planes() after each
     signature, with the evictions and re-encoded planes so far, the galois
     steps the bootstraps asked for, whether they asked for the conjugation
     key); bootstrapper: a list that gets the bootstrapper."""
@@ -207,15 +218,20 @@ def dry_bootstraps(profile, sigs, bs_config, config=None, budget=None, sequence=
         bs.set_plane_budget(budget, sequence)
     after = []
     for nl, sc, target in sigs:
-        bs.bootstrap(torch.empty((2, nl, ctx.n), dtype=torch.int32, device="meta"),
-                     nl, sc, target)
+        if rows == 1:
+            bs.bootstrap(torch.empty((2, nl, ctx.n), dtype=torch.int32, device="meta"),
+                         nl, sc, target)
+        else:
+            bs.bootstrap_rows(torch.empty((rows, 2, nl, ctx.n), dtype=torch.int32,
+                                          device="meta"), nl, sc, target)
         after.append(dict(bs.cached_planes(), evictions=bs.evictions,
                           reencodes=bs.reencodes))
     return after, sorted(steps), bool(conj)
 
 
-def plan(prog, constants, profile, hbm):
-    """The whole prediction as one dict (module docstring)."""
+def plan(prog, constants, profile, hbm, batch=()):
+    """The whole prediction as one dict (module docstring); batch: the
+    batch sizes to plan (batch_plan)."""
     ex, cid_info, cid_qp = executor_shell(prog, profile, constants)
     cfg = ex.s.ctx.config
     sigs = ex._boot_signatures()
@@ -282,7 +298,48 @@ def plan(prog, constants, profile, hbm):
         top_ciphertext_rows=top_rows, graph_pool_estimate_bytes=int(graph_pool),
         bootstrap_working_set_bytes=int(boot_work), deep_diagonal_bytes=deep,
         unbounded_plane_bytes=unbounded, eager_plaintext_bytes=eager, paths=paths,
-        boot_graphs=boot_graph_plans(prog, profile, budgets["segment"][1], constants))
+        boot_graphs=boot_graph_plans(prog, profile, budgets["segment"][1], constants),
+        batches={b: batch_plan(ex, profile, bs_config, sigs, seq, b, budgets, graph_pool,
+                               key_device + plaintext_bytes + graph_pool + boot_work, hbm)
+                 for b in batch})
+
+
+def batch_plan(ex, profile, bs_config, sigs, seq, batch, budgets, single_pool, base, hbm):
+    """A batch request of `batch` ciphertexts (module docstring): the
+    executor's plan of it (HEVMExecutor.plan_batch, on the shell executor
+    given the path budgets and the single request's graph pool estimate):
+    its bytes beside a single request's, the plane bound it leaves; then
+    the planes it holds at most and encodes again a request, the boot
+    windows it replays, and its predicted device bytes (`base`, what a
+    single request holds but the planes and the LRU, plus the batch's own;
+    `hbm` the limit it is a share of); or the refusal."""
+    ex._path_budgets = budgets
+    ex.capture_stats, ex.batch_capture_stats = dict(pool_bytes=int(single_pool)), None
+    try:
+        p = ex.plan_batch(batch)
+    except BatchTooLarge as e:
+        return dict(batch=batch, register_bytes=ex.register_bytes(),
+                    single_pool_bytes=int(single_pool), batch_bytes=int(e.need), fits=False,
+                    need_bytes=int(e.need), room_bytes=int(e.room))
+    out = dict(batch=batch, register_bytes=p["register_bytes"],
+               single_pool_bytes=int(single_pool), batch_bytes=int(p["batch_bytes"]))
+    lru, room = p["lru_budget"], p["plane_budget"]
+    held_bs = []
+    bounded, _, _ = dry_bootstraps(profile, sigs + seq + seq, bs_config, budget=room,
+                                   sequence=[(nl, sc) for nl, sc, _ in seq],
+                                   bootstrapper=held_bs, rows=batch)
+    held = max(a["diagonal_bytes"] + a["constant_bytes"] for a in bounded)
+    second = bounded[len(sigs) + len(seq) - 1]
+    verdict = held_bs[0].graph_plan()
+    windows = boot_window_plan(ex._boot_windows(), verdict, "segment")
+    index = {sig: i for i, sig in enumerate(sigs)}
+    total = base + lru + held + p["batch_bytes"]
+    return dict(out, fits=True, plaintext_lru_bytes=lru, plane_budget=int(room),
+                plane_bytes_held_most=held,
+                reencoded_planes_per_request=bounded[-1]["reencodes"] - second["reencodes"],
+                evictions_per_request=bounded[-1]["evictions"] - second["evictions"],
+                boot_windows=[(wi, index[sig], why) for wi, sig, why in windows],
+                predicted_device_bytes=int(total), headroom=1 - total / hbm)
 
 
 def boot_graph_plans(prog, profile, segment_bound, constants=None):
@@ -355,8 +412,10 @@ def main(argv):
     hbm = int(argv[argv.index("--hbm") + 1]) if "--hbm" in argv else H100_BYTES
     cst = (argv[argv.index("--cst") + 1] if "--cst" in argv else
            os.path.join(REPO, "traced", "resnet_torch", "_hecate_ResNet.cst"))
+    batch = ([int(b) for b in argv[argv.index("--batch") + 1].split(",")]
+             if "--batch" in argv else [])
     prog = HEVMProgram.load(os.path.join(ART, "ResNet.hevm"))
-    r = plan(prog, resnet_constants(cst), PROFILE, hbm)
+    r = plan(prog, resnet_constants(cst), PROFILE, hbm, batch)
     if "--json" in argv:
         print(json.dumps(r))
         return
@@ -402,6 +461,22 @@ def main(argv):
               f", eager {dict(eager)}")
     print(f"the segment bound's pinned planes {gb(g['pinned_bytes'][0])}, the most another "
           f"signature reads besides them {gb(g['pinned_bytes'][1])}")
+    for b, p in r["batches"].items():
+        head = (f"batch B={b}: registers {gb(p['register_bytes'])} and graph pool "
+                f"{gb(p['single_pool_bytes'])} a ciphertext, {p['batch_bytes']} B "
+                f"({gb(p['batch_bytes'])}) beside a single request")
+        if not p["fits"]:
+            print(f"{head}: cannot be held, {p['need_bytes']} B needed, {p['room_bytes']} B "
+                  "of planes on the segment path (precompile_batch raises BatchTooLarge)")
+            continue
+        eager = collections.Counter(why for _, _, why in p["boot_windows"] if why is not None)
+        print(f"{head}: plane bound {p['plane_budget']} B, at most "
+              f"{gb(p['plane_bytes_held_most'])} held, {p['evictions_per_request']} groups "
+              f"dropped and {p['reencoded_planes_per_request']} planes encoded again a batch "
+              f"request; {sum(why is None for _, _, why in p['boot_windows'])} boot windows "
+              f"replay a graph, eager {dict(eager)}; predicted device bytes "
+              f"{p['predicted_device_bytes']} ({gb(p['predicted_device_bytes'])}): headroom "
+              f"{p['headroom']:.3f}")
 
 
 if __name__ == "__main__":

@@ -151,6 +151,31 @@ def test_replay_bookkeeping_equals_eager(room):
     assert replayed.replayed_ntt == {"ntt_fwd_cuda": 9, "ntt_inv_cuda": 6}
 
 
+def test_batch_rows_keep_the_request_position():
+    """A batch request of 2 rows over a request of A, B, A, B under a bound
+    that holds one signature's planes: bootstrap_rows runs each window's
+    rows at the place of the request's bootstrap they repeat, so after
+    every window the sequence's position, the groups dropped and the planes
+    encoded again are a single request's (without it the second row of the
+    first A moved the request to its second A), with twice the calls."""
+    seq = [A, B, A, B]
+    probe = _shape_bootstrapper(None, seq)
+    budget = max(sum(p[2] for p in probe._sig_planes[sig].values()) for sig in (A, B))
+    single, batch = _shape_bootstrapper(budget, seq), _shape_bootstrapper(budget, seq)
+    n = single.s.ctx.n
+    for sig in seq + seq:
+        out, meta = single.bootstrap(torch.empty((2, sig[0], n), dtype=torch.int32,
+                                                 device="meta"), *sig, 1)
+        rows, rows_meta = batch.bootstrap_rows(torch.empty((2, 2, sig[0], n), dtype=torch.int32,
+                                                           device="meta"), *sig, 1)
+        assert rows_meta == meta and rows.shape == (2,) + tuple(out.shape)
+        one, two = _bookkeeping(single), _bookkeeping(batch)
+        warm = 2                # each bootstrapper's warm-up of A and B
+        assert two.pop("calls") - warm == 2 * (one.pop("calls") - warm)
+        assert one == two
+    assert single.evictions > 0 and single.reencodes > 0
+
+
 def test_pinned_planes_never_dropped():
     """Under a bound of 0 bytes (only the running signature's planes stay)
     the pinned planes of A stay through B's bootstraps, which drop and

@@ -116,7 +116,7 @@ def runs(compiled):
     pex.bootstrapper.bootstrap = recorded
     port_out = pex.run([x])
     del pex.bootstrapper.bootstrap
-    return dict(prog=pex.prog, x=x, ref_out=ref_out, ref_cts=ref_cts, pex=pex,
+    return dict(prog=pex.prog, x=x, ref_out=ref_out, ref_cts=ref_cts, pex=pex, ref=ref, ex=ex,
                 port=port, port_out=port_out, boot_args=boot_args,
                 port_cts=[to_host(c) for c in pex._last_outputs[0]],
                 meta=(pex._last_outputs[1], ex._last_outputs[1]))
@@ -195,6 +195,48 @@ def test_warm_bootstraps_cover_the_run(runs, monkeypatch):
     assert len(runs["boot_args"]) == 1
     nl, sc, t = runs["boot_args"][0]
     assert seen == [((2, nl, runs["port"].ctx.n), 0, nl, sc, t)]
+
+
+B = 3               # the batch of test_batch_bit_equal_to_jax
+
+
+@pytest.fixture(scope="module")
+def batch_runs(runs):
+    """B ciphertexts, encrypted by the JAX package under `runs`' keys (both
+    packages drew the same keys from SEED), through both packages'
+    run_encrypted_batch: the JAX executor of `runs` (whose per-op request
+    compiled the native bootstrap's ops in this process), mesh=None, and
+    the port's, each bootstrapping the batch row by row."""
+    ref, ex, pex = runs["ref"], runs["ex"], runs["pex"]
+    nl, scale = (pex.prog.arg_level[0] + 1) * pex.rr, float(2.0 ** pex.prog.arg_scale[0])
+    xs = np.random.default_rng(1).uniform(0.5, 0.55, (B, ref.ctx.config.n_slots))
+    cts = np.stack([np.asarray(ref.encrypt(v, scale=scale, nl=nl).data) for v in xs])
+    ref_outs, ref_meta = ex.run_encrypted_batch([(cts, nl, scale)], mesh=None)
+    calls = pex.bootstrapper.calls
+    outs, meta = pex.run_encrypted_batch(
+        [(torch.from_numpy(cts.astype(np.uint32).view(np.int32)), nl, scale)])
+    return dict(xs=xs, ref_outs=[np.asarray(o) for o in ref_outs], ref_meta=ref_meta,
+                outs=[to_host(o) for o in outs], meta=meta,
+                calls=pex.bootstrapper.calls - calls, pex=pex)
+
+
+def test_batch_bit_equal_to_jax(batch_runs):
+    """The port's native batch of B, every row of every output ciphertext
+    and the output metadata, equals the JAX package's run_encrypted_batch
+    on the same keys and ciphertexts; B bootstraps ran, one a row, and each
+    row decrypts to the model (tests/test_torch_batch_native.py holds the
+    rows to single requests)."""
+    r = batch_runs
+    assert r["calls"] == B
+    assert [tuple(m) for m in r["meta"]] == [tuple(m) for m in r["ref_meta"]]
+    assert len(r["outs"]) == len(r["ref_outs"]) >= 1
+    for got, want in zip(r["outs"], r["ref_outs"]):
+        assert got.shape == (B,) + want.shape[1:]
+        np.testing.assert_array_equal(got, want)
+    dec = r["pex"].decrypt_outputs()
+    for b, x in enumerate(r["xs"]):
+        rms = float(np.sqrt(np.mean((dec[b][0] - _script().deep_golden(x, DEPTH)) ** 2)))
+        assert rms < 1e-3, (b, rms)
 
 
 # ----------------------------------------------------------------------- C.2
